@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the CUDA kernels from csrc/ and times the build;
-3. holds each kernel (and each variant: bf16 store, stochastically
+2. builds the CUDA kernels from csrc/ (one nvcc per source, all at once)
+   and times the build;
+3. holds each TT kernel (and each variant: bf16 store, stochastically
    rounded store, bf16 d_out, SGD, adagrad, rowwise adagrad) against its
    plain PyTorch version at the main path's shapes (ogbn-products TT
    shapes, 937,984 ids per step from a seeded zipf draw) and at small 2-
@@ -13,8 +14,13 @@
    exists, the PyTorch library call for the same function;
 4. checks the train step on the card against the same step on the CPU
    (plain versions) on a tiny graph, for f32 --sparse, f32 without it,
-   --bf16 --sparse, --bf16 --bf16-sr --sparse and each --tt-optimizer;
-5. trains the full-width SAGE 3x256 on the full-size hard-ogbn-products
+   --bf16 --sparse, --bf16 --bf16-sr --sparse and each --tt-optimizer, and
+   3 full-graph steps of GCN (--spmm xla and blocked) and GAT;
+5. trains full-graph GCN (--spmm xla, --spmm blocked) and GAT at full
+   width (3 layers x 256, GAT 3 heads) on the full-size hard-ogbn-arxiv
+   graph, 3 steps each with the launch counters zeroed before and read
+   after, then evaluate(); the blocked losses are held to the xla ones;
+6. trains the full-width SAGE 3x256 on the full-size hard-ogbn-products
    graph: 5 steps of the main path, --bf16 --sparse (bf16 kernel I/O,
    fused Adam), with the launch counters zeroed before and read after; a
    profiled window of 3 steps (device time by kernel); 5 steps sampled on
@@ -23,7 +29,14 @@
    --sparse --tt-optimizer sgd|adagrad|rowwise_adagrad, 2 f32 --sparse
    steps, 2 f32 steps without --sparse (TTLookup's backward kernel), and
    full-graph evaluate() in f32 and under bf16;
-6. prints the per-kernel JSON line, then the device line.
+7. evaluate() of the f32 weights through --spmm pallas (B7) and --spmm
+   blocked (B9): the host tiling timed apart, the accuracies held to the
+   xla route's;
+8. holds the SpMM kernels (B7 at D=100 and 256 in f32 and with bf16
+   compute at 256, B8 at 100, B9 at 256) against their plain versions on
+   the products graph, and times them beside torch.sparse.mm (B7, B8),
+   index_select + mul (B9) and the xla route;
+9. prints the per-kernel JSON line, then the device line.
 
 Exits non-zero, before printing any result, without a CUDA device or
 outside a checkout of the repository; any failed check raises.
@@ -63,13 +76,29 @@ LR = 3e-3
 # (BF16_MIN_EQUAL, check_bf16).
 TOL = {"tt_fwd": 1e-5, "tt_grads": 1e-4, "tt_adam_apply": 1e-5,
        "tt_adam_apply core change": 1e-4, "tt_sgd_apply": 1e-6,
-       "tt_adagrad_apply": 1e-6, "tt_adagrad_apply[rowwise]": 1e-5}
+       "tt_adagrad_apply": 1e-6, "tt_adagrad_apply[rowwise]": 1e-5,
+       # the SpMMs: each row's sum (~50 terms at products, in-degree up to a
+       # few hundred) in another order (FMA, per-warp runs, shared-memory
+       # atomics) than the plain version's index_add_; with bf16 compute
+       # both sides round h and w alike, so only the order differs
+       "spmm_tiled": 1e-5, "spmm_tiled[bf16]": 1e-5, "spmm_tile_partials": 1e-5}
 BF16_MIN_EQUAL = 0.999
-SOURCE = "falcon_ttdforgnns_torch/csrc/tt_kernels.cu"
-REPLACES = {  # the TPU kernel each one ports (def line in tt_pallas.py)
-    "tt_fwd": 255, "tt_fwd[bf16]": 255, "tt_fwd_sr": 261, "tt_grads": 280,
-    "tt_grads[bf16]": 280, "tt_sgd_apply": 302, "tt_adagrad_apply": 329,
-    "tt_adagrad_apply[rowwise]": 329, "tt_adam_apply": 378}
+STEPS_FULL = 3       # full-graph GCN/GAT steps at full width
+SPMM_ROUTE_ACC = 1e-3  # --spmm pallas|blocked accuracies against xla's (argmax near-ties)
+TT_SOURCE = "falcon_ttdforgnns_torch/csrc/tt_kernels.cu"
+SPMM_SOURCE = "falcon_ttdforgnns_torch/csrc/spmm_kernels.cu"
+TT_PALLAS = "falcon_ttdforgnns_tpu/ops/tt_pallas.py"
+REPLACES = {  # the TPU kernel each one ports (its def line)
+    "tt_fwd": f"{TT_PALLAS}:255", "tt_fwd[bf16]": f"{TT_PALLAS}:255",
+    "tt_fwd_sr": f"{TT_PALLAS}:261", "tt_grads": f"{TT_PALLAS}:280",
+    "tt_grads[bf16]": f"{TT_PALLAS}:280", "tt_sgd_apply": f"{TT_PALLAS}:302",
+    "tt_adagrad_apply": f"{TT_PALLAS}:329", "tt_adagrad_apply[rowwise]": f"{TT_PALLAS}:329",
+    "tt_adam_apply": f"{TT_PALLAS}:378",
+    "spmm_tiled": "falcon_ttdforgnns_tpu/ops/spmm_pallas.py:122",
+    "spmm_tiled[bf16]": "falcon_ttdforgnns_tpu/ops/spmm_pallas.py:122",
+    "spmm_tile_partials": "falcon_ttdforgnns_tpu/ops/spmm_pallas.py:171",
+    "spmm_gather": "falcon_ttdforgnns_tpu/ops/spmm_blocked.py:140"}
+ARXIV = dict(p_shapes=(50, 60, 60), q_shapes=(8, 4, 4), tt_ranks=(16, 16))  # the arxiv preset
 
 
 def log(msg: str) -> None:
@@ -391,13 +420,29 @@ def train_steps(trainer, batches, label):
     return losses
 
 
-def counted_steps(K, trainer, batches, label, must_launch):
+def kernel_modules():
+    """The wrapper modules, each with its KERNELS and launch counts."""
+    from falcon_ttdforgnns_torch.ops import spmm_blocked, spmm_tiled, tt_kernels
+    return tt_kernels, spmm_tiled, spmm_blocked
+
+
+def reset_counts() -> None:
+    for m in kernel_modules():
+        m.reset_launch_counts()
+
+
+def launched() -> dict:
+    """The nonzero launch counts of every kernel variant."""
+    return {k: v for m in kernel_modules() for k, v in m.launch_counts().items() if v}
+
+
+def counted_steps(trainer, batches, label, must_launch):
     """Steps with the launch counters zeroed just before and read just
     after; raise unless each kernel in `must_launch` launched.  Returns the
     counts."""
-    K.reset_launch_counts()
+    reset_counts()
     train_steps(trainer, batches, label)
-    counts = {k: v for k, v in K.launch_counts().items() if v}
+    counts = launched()
     log(f"  launches: {counts}")
     missing = [k for k in must_launch if not counts.get(k)]
     if missing:
@@ -405,22 +450,27 @@ def counted_steps(K, trainer, batches, label, must_launch):
     return counts
 
 
-def checked_evaluate(K, trainer, label):
-    """evaluate() twice (the first call moves the edge list to the card);
-    raise unless the accuracies are in [0, 1] and the lookup kernel ran."""
+def checked_evaluate(trainer, label, must_launch=("tt_fwd",)):
+    """evaluate() twice (the first call moves the edge list to the card and
+    builds a route's tiling); raise unless the accuracies are in [0, 1] and
+    the kernels of `must_launch` ran in the first call.  Returns the
+    accuracies and that call's launch counts."""
     import torch
-    K.reset_launch_counts()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     accs = trainer.evaluate()
     first = (time.perf_counter() - t0) * 1e3
+    counts = launched()
     t0 = time.perf_counter()
     trainer.evaluate()
     log(f"  {label}: {first:.0f} ms (first call, includes moving the edge list to "
         f"the card), second call {(time.perf_counter() - t0) * 1e3:.0f} ms, {accs}, "
-        f"launches {K.launch_counts()['tt_fwd']} tt_fwd")
-    if not all(0.0 <= a <= 1.0 for a in accs.values()) or K.launch_counts()["tt_fwd"] == 0:
-        raise AssertionError(f"evaluate() gave {accs}")
+        f"launches {counts}")
+    missing = [k for k in must_launch if not counts.get(k)]
+    if not all(0.0 <= a <= 1.0 for a in accs.values()) or missing:
+        raise AssertionError(f"evaluate() gave {accs}, {missing} never launched")
+    return accs, counts
 
 
 def profile_steps(trainer, batches) -> None:
@@ -449,6 +499,241 @@ def profile_steps(trainer, batches) -> None:
             f"x{count // n:<3d} {key[:90]}")
 
 
+def small_full_graph_check(dev):
+    """Step 4, full graph: 3 GCN (--spmm xla and blocked) and GAT steps on
+    the card against the same steps on the CPU (plain versions) on a tiny
+    graph, both dropouts 0: GAT's attention dropout, fixed at 0.05 in the
+    model, is set to 0 on both sides, since the two devices' dropout bits
+    differ.  The card tiles the blocked SpMM at 4096/512 slots and the CPU
+    at 256/8, so sums run in other orders: losses within 1e-4, parameters
+    within 3e-3 lr (Adam's normalised steps)."""
+    from falcon_ttdforgnns_torch.graph import hard_synthetic_dataset
+    from falcon_ttdforgnns_torch.train import FullGraphConfig, FullGraphTrainer
+    ds = hard_synthetic_dataset(num_nodes=3000, avg_degree=6, num_classes=5,
+                                feat_dim=64, seed=1)
+    for kw in (dict(model="gcn"), dict(model="gcn", spmm="blocked"), dict(model="gat")):
+        cfg = FullGraphConfig(hidden_dim=32, num_layers=2, num_heads=2, tt_ranks=(8, 8),
+                              dropout=0.0, warmup_epochs=3, use_linear=True, seed=1, **kw)
+        gpu, cpu = FullGraphTrainer(ds, cfg, device=dev), FullGraphTrainer(ds, cfg, device="cpu")
+        for tr in (gpu, cpu):
+            for conv in tr.model.gnn.convs:
+                if hasattr(conv, "attn_dropout"):
+                    conv.attn_dropout = 0.0
+        for e in range(3):
+            lg, lc = gpu.train_epoch(e)["loss"], cpu.train_epoch(e)["loss"]
+            if not math.isclose(lg, lc, rel_tol=1e-4):
+                raise AssertionError(f"{kw} step {e}: loss on the card {lg} vs on the CPU {lc}")
+        err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                  for a, b in zip(gpu.model.parameters(), cpu.model.parameters()))
+        ok = err <= 3 * 1e-3 * cfg.lr
+        log(f"  tiny graph full-graph {kw}: 3 steps, loss card vs CPU ok, max param diff "
+            f"{err:.3e} (tol {3 * 1e-3 * cfg.lr:.1e}) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"{kw}: params on the card and on the CPU disagree")
+
+
+def full_graph_phase(dev):
+    """Step 5: full-graph GCN (--spmm xla and blocked) and GAT at full width
+    on the full-size hard-ogbn-arxiv graph, the reference's arxiv recipe.
+    Returns each run's launch counts."""
+    import torch
+    from falcon_ttdforgnns_torch.graph import get_dataset, reorder_permutation
+    from falcon_ttdforgnns_torch.train import FullGraphConfig, FullGraphTrainer
+    t0 = time.perf_counter()
+    ds = get_dataset("hard-ogbn-arxiv", seed=0)
+    ds = ds.permute(reorder_permutation(ds.graph, 0, seed=0))
+    log(f"dataset {ds.name}: {ds.num_nodes} nodes, {ds.graph.num_edges} edges, "
+        f"{ds.num_classes} classes, {time.perf_counter() - t0:.1f} s on the host")
+    runs = [("gcn xla", dict(model="gcn"), ("tt_fwd", "tt_grads")),
+            ("gcn blocked", dict(model="gcn", spmm="blocked"),
+             ("tt_fwd", "tt_grads", "spmm_gather")),
+            ("gat", dict(model="gat"), ("tt_fwd", "tt_grads"))]
+    losses, counts = {}, {}
+    for label, kw, must in runs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = FullGraphConfig(**ARXIV, **kw)
+        t0 = time.perf_counter()
+        tr = FullGraphTrainer(ds, cfg, device=dev)
+        what = (f"{cfg.num_layers} layers x {cfg.num_heads} heads x {cfg.hidden_dim}"
+                if cfg.model == "gat" else f"{cfg.num_layers} layers x {cfg.hidden_dim}")
+        if tr.blocked is not None:
+            what += (f", window tiling {tr.blocked.fwd[0].numel()} tiles of {tr.blocked.tile} "
+                     f"in {tr.blocked.fwd[0].shape[0]} chunks (transposed: "
+                     f"{tr.blocked.bwd[0].numel()} tiles)")
+        log(f"{label}: {what}, lr {cfg.lr} warmup {cfg.warmup_epochs}, dropout "
+            f"{cfg.dropout}; trainer built in {time.perf_counter() - t0:.1f} s")
+        reset_counts()
+        losses[label] = []
+        for e in range(STEPS_FULL):
+            st = tr.train_epoch(e)
+            log(f"  {label} step {e}: {st['epoch_time'] * 1e3:.1f} ms loss {st['loss']:.6f}")
+            if not math.isfinite(st["loss"]):
+                raise AssertionError(f"{label} step {e}: loss {st['loss']}")
+            losses[label].append(st["loss"])
+        counts[label] = launched()
+        missing = [k for k in must if not counts[label].get(k)]
+        log(f"  launches: {counts[label]}")
+        if missing:
+            raise AssertionError(f"{label}: {missing} never launched")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accs = tr.evaluate()
+        log(f"  {label} evaluate(): {(time.perf_counter() - t0) * 1e3:.0f} ms, {accs}; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not all(0.0 <= a <= 1.0 for a in accs.values()):
+            raise AssertionError(f"{label} evaluate() gave {accs}")
+        del tr
+    for a, b in zip(losses["gcn blocked"], losses["gcn xla"]):
+        if not math.isclose(a, b, rel_tol=1e-3):
+            raise AssertionError(f"gcn blocked losses {losses['gcn blocked']} vs xla "
+                                 f"{losses['gcn xla']}")
+    log(f"  gcn blocked losses within rtol 1e-3 of xla's: max rel diff "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(losses['gcn blocked'], losses['gcn xla'])):.2e}")
+    return counts
+
+
+def sage_eval_routes(ds, config, state, xla_accs, dev):
+    """Step 7: evaluate() of the f32 weights `state` through --spmm pallas
+    (B7) and --spmm blocked (B9); the host tiling is timed apart.  Returns
+    each route's FullGraphSpmm and the launch counts of its first
+    evaluate()."""
+    import torch
+    from falcon_ttdforgnns_torch.train import SageTrainer
+    spmms, counts = {}, {}
+    for route, kernel in (("pallas", "spmm_tiled"), ("blocked", "spmm_gather")):
+        tr = SageTrainer(ds, config(spmm=route), device=dev)
+        tr.model.load_state_dict(state)
+        sp = tr.full_graph_spmm(route)
+        log(f"--spmm {route}: host tiling {sp.tiling_s:.1f} s, {sp.info}")
+        accs, counts[route] = checked_evaluate(tr, f"--spmm {route} evaluate",
+                                               ("tt_fwd", kernel))
+        off = max(abs(accs[k] - xla_accs[k]) for k in accs)
+        log(f"  accuracies within {off:.2e} of the xla route's (tol {SPMM_ROUTE_ACC})")
+        if off > SPMM_ROUTE_ACC:
+            raise AssertionError(f"--spmm {route} accuracies {accs} vs xla {xla_accs}")
+        spmms[route] = sp
+        del tr
+        torch.cuda.empty_cache()
+    return spmms, counts
+
+
+def spmm_kernel_phase(ds, spmms, dev):
+    """Step 8: the SpMM kernels at the products shapes (the trainer's own
+    tilings) against their plain versions, timed beside the plain version,
+    a PyTorch library call and the xla route.  Bounds: compulsory bytes
+    (h, the tiling's slots, out, each once) over 3.35 TB/s against useful
+    f32 operations (2 per real edge and column for B7/B8, 1 multiply per
+    message value for B9) over 67 TFLOP/s.  Returns per-kernel results and
+    the phase's launch counts."""
+    import torch
+    from falcon_ttdforgnns_torch.ops import segment
+    from falcon_ttdforgnns_torch.ops import spmm_blocked as B
+    from falcon_ttdforgnns_torch.ops import spmm_tiled as P
+    n = ds.num_nodes
+    src, dst = ds.graph.to_coo()
+    E = len(src)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    col = torch.as_tensor(ds.graph.indices.astype(np.int64), device=dev)
+    crow = torch.as_tensor(ds.graph.indptr, device=dev)
+    A = torch.sparse_csr_tensor(crow, col, torch.ones(E, device=dev), size=(n, n))
+    dst_d = torch.as_tensor(dst.astype(np.int64), device=dev)
+    sp = spmms["pallas"]
+    info = sp.info
+    log(f"SpMM kernels at the products graph: {E} edges; uniform tiling {info}")
+    res, lib, hs = {}, {}, {}
+    reset_counts()
+
+    def record(name, err, ms, plain_ms, library_ms, nbytes, flops):
+        b, by = bound_ms(nbytes, flops)
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=b, bound_by=by)
+        lib_s = "none" if library_ms is None else f"{library_ms:.3f}"
+        log(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f}, library {lib_s}, bound "
+            f"{b:.3f} ms by {by}: {b / ms:.1%} of it)")
+
+    for D in (100, 256):
+        h = hs[D] = torch.randn((n, D), generator=gen, device=dev)
+        err = check(f"spmm_tiled D={D}", [("out", sp(h), P.seg_mm_plain(
+            h, *sp.arrays, *sp.meta[:4])[:n], "spmm_tiled")])
+        ms = cuda_ms(lambda: sp(h), 5)
+        plain_ms = cuda_ms(lambda: P.seg_mm_plain(h, *sp.arrays, *sp.meta[:4]), 1, warmup=0)
+        lib[D] = cuda_ms(lambda: torch.sparse.mm(A, h), 5)
+        xla = cuda_ms(lambda: segment.spmm_sum_chunked(h, col, dst_d, n), 2)
+        log(f"  xla route (spmm_sum_chunked, index_add_) D={D}: {xla:.3f} ms")
+        nbytes = 8 * n * D + 12 * info["slots"] + 4 * (info["tiles"] + info["chunks"])
+        name = "spmm_tiled" if D == 256 else "spmm_tiled (D=100)"
+        record(name, err, ms, plain_ms, lib[D], nbytes, 2 * E * D)
+    h = hs[256]
+    bf16 = torch.bfloat16
+    got = P.spmm_sum_tiled_uniform(h, *sp.arrays, *sp.meta, compute_dtype=bf16)
+    err = check("spmm_tiled[bf16] D=256", [("out", got, P.seg_mm_plain(
+        h, *sp.arrays, *sp.meta[:4], compute_dtype=bf16)[:n], "spmm_tiled[bf16]")])
+    f32 = sp(h)
+    log(f"  bf16 compute against f32: max rel diff "
+        f"{float((got - f32).abs().max() / f32.abs().max()):.2e}")
+    del got, f32
+    ms = cuda_ms(lambda: P.spmm_sum_tiled_uniform(h, *sp.arrays, *sp.meta,
+                                                  compute_dtype=bf16), 5)
+    plain_ms = cuda_ms(lambda: P.seg_mm_plain(h, *sp.arrays, *sp.meta[:4],
+                                              compute_dtype=bf16), 1, warmup=0)
+    try:  # the yardstick only: cuSPARSE may not take bf16
+        A16 = torch.sparse_csr_tensor(crow, col, torch.ones(E, device=dev, dtype=bf16),
+                                      size=(n, n))
+        h16 = h.to(bf16)
+        library = cuda_ms(lambda: torch.sparse.mm(A16, h16), 5)
+        del A16, h16
+    except RuntimeError as e:
+        log(f"  torch.sparse.mm in bf16: {str(e).splitlines()[0][:120]}")
+        library = None
+    record("spmm_tiled[bf16]", err, ms, plain_ms, library,
+           8 * n * 256 + 12 * info["slots"] + 4 * (info["tiles"] + info["chunks"]),
+           2 * E * 256)
+
+    h = hs[100]
+    t0 = time.perf_counter()
+    flat = P.build_spmm_tiles(src.astype(np.int32), dst, n, tile_edges=sp.meta[3])
+    args = (*(torch.as_tensor(a, device=dev) for a in (flat.src, flat.dstl, flat.w, flat.blk)),
+            flat.num_blocks, flat.block_rows, flat.tile_edges, n)
+    log(f"  flat tiling for B8: {flat.blk.size} tiles, {flat.src.size} slots, "
+        f"{time.perf_counter() - t0:.1f} s on the host")
+    err = check("spmm_tile_partials D=100", [("out", P.spmm_sum_tile_partials(h, *args),
+                                              P.tile_partials_plain(h, *args),
+                                              "spmm_tile_partials")])
+    ms = cuda_ms(lambda: P.spmm_sum_tile_partials(h, *args), 3)
+    plain_ms = cuda_ms(lambda: P.tile_partials_plain(h, *args), 1, warmup=0)
+    record("spmm_tile_partials", err, ms, plain_ms, lib[100],
+           8 * n * 100 + 12 * flat.src.size + 4 * flat.blk.size, 2 * E * 100)
+    del args, flat
+
+    bp = spmms["blocked"]
+    win2, idx2, _, w2 = bp.arrays
+    T, nc, D = bp.meta[0], win2.shape[0], 256
+    h = hs[256]
+    log(f"  window tiling {bp.info}: the gather of every chunk ({nc} launches)")
+    for c in range(nc):
+        if not torch.equal(B.window_gather(h, win2[c], idx2[c], w2[c], T),
+                           B.window_gather_plain(h, win2[c], idx2[c], w2[c], T)):
+            raise AssertionError(f"spmm_gather chunk {c} differs from its plain version")
+    log(f"  spmm_gather D={D}: every message of every chunk bit-identical to the plain version")
+    rows = [win2[c].long().repeat_interleave(T) * (T // 2) + idx2[c].long() for c in range(nc)]
+
+    def gather_all(fn):
+        for c in range(nc):
+            fn(h, win2[c], idx2[c], w2[c], T)
+
+    def library_gather():  # two calls a chunk; the rows computed outside the timing
+        for c in range(nc):
+            torch.mul(h.index_select(0, rows[c]), w2[c][:, None])
+
+    record("spmm_gather", 0.0, cuda_ms(lambda: gather_all(B.window_gather), 3),
+           cuda_ms(lambda: gather_all(B.window_gather_plain), 1, warmup=0),
+           cuda_ms(library_gather, 3),
+           4 * n * D + 8 * bp.info["slots"] + 4 * bp.info["tiles"] + 4 * bp.info["slots"] * D,
+           bp.info["slots"] * D)
+    return res, launched()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -472,24 +757,34 @@ def main() -> int:
     from falcon_ttdforgnns_torch.ops import _build
     from falcon_ttdforgnns_torch.ops import tt_kernels as K
     t0 = time.perf_counter()
-    so, report = _build.build()
-    _build.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(so, here)}")
-    kernel = None
-    for line in report.splitlines():  # one line per compiled kernel
-        if "Function properties for" in line:
-            kernel, spill = line.split("for", 1)[1].strip(), ""
-        elif "spill" in line and kernel:
-            spill = line.strip()
-        elif "registers" in line and kernel:
-            short = re.search(r"tt_(?!kernels_cu)\w+", kernel)
-            log(f"  ptxas {short.group(0)[:44] if short else kernel}: "
-                f"{line.split(':', 1)[1].strip()}; {spill}")
+    built = _build.build_all()  # one nvcc per source, all at once
+    for name in built:
+        _build.library(name)
+    log(f"build: {time.perf_counter() - t0:.1f} s -> "
+        f"{', '.join(os.path.relpath(so, here) for so, _ in built.values())}")
+    for _, report in built.values():
+        kernel = None
+        for line in report.splitlines():  # one line per compiled kernel
+            if "Function properties for" in line:
+                kernel, spill = line.split("for", 1)[1].strip(), ""
+            elif "spill" in line and kernel:
+                spill = line.strip()
+            elif "registers" in line and kernel:
+                short = re.search(r"(?:tt_(?!kernels_cu)|seg_mm|tile_mm|window_gather)\w+",
+                                  kernel)
+                log(f"  ptxas {short.group(0)[:44] if short else kernel}: "
+                    f"{line.split(':', 1)[1].strip()}; {spill}")
 
     res = kernel_phase(K, dev)
     torch.cuda.empty_cache()
     log("train step, card vs CPU:")
     small_step_check(dev)
+    small_full_graph_check(dev)
+    torch.cuda.empty_cache()
+
+    log("full-graph GCN/GAT at full width (the arxiv recipe):")
+    counts = {f"full-graph {k}": v for k, v in full_graph_phase(dev).items()}
+    torch.cuda.empty_cache()
 
     from falcon_ttdforgnns_torch.graph import get_dataset, reorder_permutation
     from falcon_ttdforgnns_torch.train import SageTrainer, TrainConfig
@@ -513,8 +808,8 @@ def main() -> int:
 
     log(f"main path: {STEPS_MAIN} --bf16 --sparse steps (bf16 kernel I/O, fused Adam), "
         f"SAGE {cfg.num_layers}x{cfg.hidden_dim}")
-    counts = {"main": counted_steps(K, trainer, main_b, "bf16 sparse",
-                                    ("tt_fwd[bf16]", "tt_grads[bf16]", "tt_adam_apply"))}
+    counts["main"] = counted_steps(trainer, main_b, "bf16 sparse",
+                                   ("tt_fwd[bf16]", "tt_grads[bf16]", "tt_adam_apply"))
     profile_steps(trainer, main_b[:3])
     # what train_epoch does per batch: sample on the host, then step
     loader_it = iter(trainer.loader)
@@ -527,7 +822,7 @@ def main() -> int:
     log(f"  sample + step, as in train_epoch: {per_step * 1e3:.1f} ms per step, "
         f"{cfg.batch_size / per_step:.0f} seeds/s")
     log("evaluate() under bf16: full-graph propagation over every node and edge")
-    checked_evaluate(K, trainer, "bf16 evaluate")
+    checked_evaluate(trainer, "bf16 evaluate")
     del trainer
     torch.cuda.empty_cache()
 
@@ -548,27 +843,39 @@ def main() -> int:
     for key, label, kw, must in others:
         log(f"{STEPS_OTHER} steps of {label}")
         tr = SageTrainer(ds, config(**kw), device=dev)
-        counts[key] = counted_steps(K, tr, other_b, key, must)
+        counts[key] = counted_steps(tr, other_b, key, must)
         if key == "f32":
-            log("evaluate() in f32")
-            checked_evaluate(K, tr, "f32 evaluate")
+            log("evaluate() in f32 (--spmm xla: index_add_)")
+            xla_accs, _ = checked_evaluate(tr, "f32 evaluate")
+            f32_state = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
         del tr
         torch.cuda.empty_cache()
+
+    log("evaluate() of the f32 weights through the SpMM kernels:")
+    spmms, route_counts = sage_eval_routes(ds, config, f32_state, xla_accs, dev)
+    counts.update({f"evaluate --spmm {k}": v for k, v in route_counts.items()})
+    spmm_res, counts["kernel phase"] = spmm_kernel_phase(ds, spmms, dev)
+    res.update(spmm_res)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"total {time.perf_counter() - t_all:.0f} s")
 
-    # each kernel's launches come from the run of the path that drives it
+    # each kernel's launches come from the run of the path that drives it;
+    # spmm_tiled[bf16] and spmm_tile_partials are on no trainer path
     path_of = {"tt_fwd": "f32", "tt_grads": "f32", "tt_fwd[bf16]": "main",
                "tt_grads[bf16]": "main", "tt_adam_apply": "main", "tt_fwd_sr": "sr",
                "tt_sgd_apply": "sgd", "tt_adagrad_apply": "adagrad",
-               "tt_adagrad_apply[rowwise]": "rowwise"}
-    kernels = [{"name": n, "route": "cuda", "source": SOURCE,
-                "replaces": f"falcon_ttdforgnns_tpu/ops/tt_pallas.py:{REPLACES[n]}",
-                "launches": counts[path_of[n]][n],
+               "tt_adagrad_apply[rowwise]": "rowwise",
+               "spmm_tiled": "evaluate --spmm pallas",
+               "spmm_tiled[bf16]": "kernel phase", "spmm_tile_partials": "kernel phase",
+               "spmm_gather": "full-graph gcn blocked"}
+    kernels = [{"name": n, "route": "cuda",
+                "source": TT_SOURCE if n.startswith("tt_") else SPMM_SOURCE,
+                "replaces": REPLACES[n], "launches": counts[path_of[n]][n],
+                "launched_by": path_of[n],
                 "max_abs_err": res[n]["max_abs_err"], "ms": res[n]["ms"],
                 "plain_ms": res[n]["plain_ms"], "bound_ms": res[n]["bound_ms"],
                 "bound_by": res[n]["bound_by"], "library_ms": res[n]["library_ms"]}
-               for n in K.KERNELS]
+               for m in kernel_modules() for n in m.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
 """Command-line entry point of the port: sampled GraphSAGE training
-(``--model sage``), on CUDA unless ``--device cpu``.
+(``--model sage``) and full-graph GCN/GAT training (``--model gcn|gat``),
+on CUDA unless ``--device cpu``.
 
     python -m falcon_ttdforgnns_torch.cli --dataset hard-ogbn-products \
         --sparse --epochs 1
+    python -m falcon_ttdforgnns_torch.cli --model gcn --dataset hard-ogbn-arxiv \
+        --spmm blocked --epochs 10
 
-Port of ``falcon_ttdforgnns_tpu/cli.py`` for ``--model sage`` with
-sampling; ``--run-one`` takes a single train step and exits.
+Port of ``falcon_ttdforgnns_tpu/cli.py``; ``--run-one`` takes a single
+train step (GCN/GAT: one epoch, which is one step) and exits.
 """
 
 from __future__ import annotations
@@ -20,9 +23,6 @@ def main(argv=None):
 
     args = apply_preset(parse_args(argv))
     logger = get_logger("falcon_torch", args.log_dir)
-    if args.model != "sage":
-        raise NotImplementedError(f"--model {args.model} is not ported yet "
-                                  f"(ROADMAP A14)")
     for flag in ("multihost", "autotune", "profile", "save_model", "save_pred",
                  "store_emb", "plot"):
         if getattr(args, flag):
@@ -32,7 +32,7 @@ def main(argv=None):
         args.use_tt = False
 
     from .graph import get_dataset, reorder_permutation
-    from .train import SageTrainer, TrainConfig
+    from .train import FullGraphConfig, FullGraphTrainer, SageTrainer, TrainConfig
 
     t0 = time.time()
     ds = get_dataset(args.dataset, synthetic_scale=args.synthetic_scale,
@@ -46,6 +46,29 @@ def main(argv=None):
     precomputed = _maybe_init_cores(args, ds, logger)
 
     def run_once(tt_ranks):
+        weight_dist = args.init if args.init in (
+            "normal", "uniform", "naive-uniform", "approx-normal",
+            "approx-uniform") else "approx-normal"
+        if args.model != "sage":
+            fcfg = FullGraphConfig(
+                model=args.model, epochs=args.epochs, lr=args.lr, weight_decay=args.wd,
+                dropout=args.dropout, hidden_dim=args.num_hidden,
+                num_layers=args.num_layers, num_heads=args.num_heads,
+                use_linear=args.use_linear, use_labels=args.use_labels,
+                use_tt=args.use_tt, tt_ranks=tuple(tt_ranks),
+                p_shapes=tuple(args.p_shapes) if args.p_shapes else None,
+                q_shapes=tuple(args.q_shapes) if args.q_shapes else None,
+                weight_dist=weight_dist, spmm=args.spmm,  # the trainer rejects pallas, gat+blocked
+                eval_every=args.eval_every, seed=args.seed)
+            trainer = FullGraphTrainer(ds, fcfg, logger=logger,
+                                       precomputed_cores=precomputed, device=args.device)
+            if args.run_one:
+                stats = trainer.train_epoch(0)
+                logger.info(f"run-one: {stats}")
+                return stats
+            result = trainer.fit()
+            logger.info(f"best: {result['best']}")
+            return result
         cfg = TrainConfig(
             batch_size=args.batch, fanouts=tuple(args.fan_out),
             epochs=args.epochs, lr=args.lr, dropout=args.dropout,
@@ -54,9 +77,7 @@ def main(argv=None):
             use_tt=args.use_tt, tt_ranks=tuple(tt_ranks),
             p_shapes=tuple(args.p_shapes) if args.p_shapes else None,
             q_shapes=tuple(args.q_shapes) if args.q_shapes else None,
-            weight_dist=args.init if args.init in (
-                "normal", "uniform", "naive-uniform", "approx-normal",
-                "approx-uniform") else "approx-normal",
+            weight_dist=weight_dist,
             cache_size=args.cache_size if args.use_cached else 0,
             tt_optimizer=args.tt_optimizer,
             plateau_patience=args.plateau_patience,

@@ -13,6 +13,22 @@ numpy arrays (``jax.tree.map(np.asarray, variables["params"])``) — to a
 ``load_jax_variables`` also carries the fused optimizer state
 ``variables["tt_opt"]`` into a trainer: the Adam moments and step count
 (``m_k``, ``v_k``, ``t``) or the adagrad accumulators (``acc_k``).
+
+``full_graph_state_from_jax`` maps the variables of the JAX
+``FullGraphModel`` (GCN or GAT; ``params`` and ``batch_stats``) to a
+``state_dict`` of :class:`~falcon_ttdforgnns_torch.train.full_graph.FullGraphModel`:
+
+* ``params["embed"]["tt_core_k"]`` -> ``embed.tt_core_k``;
+* GCN ``params["gnn"]["conv_i"]["Dense_0"]`` -> ``gnn.convs.i.lin``;
+* GAT ``params["gnn"]["conv_i"]["fc"]``/``["res_fc"]`` -> ``gnn.convs.i.fc``/
+  ``res_fc`` and ``["attn_l"]``/``["attn_r"]`` -> ``gnn.convs.i.attn_l``/
+  ``attn_r`` (same (1, H, Do) shape); ``["bias_last"]["bias"]`` ->
+  ``gnn.bias_last.bias``;
+* ``["linear_i"]`` -> ``gnn.linears.i``; ``["bn_i"]`` ``scale``/``bias`` ->
+  ``gnn.bns.i.weight``/``bias``, and ``batch_stats["gnn"]["bn_i"]``
+  ``mean``/``var`` -> ``gnn.bns.i.running_mean``/``running_var``.
+
+Every flax Dense kernel (in, out) becomes an ``nn.Linear`` weight (out, in).
 """
 
 from __future__ import annotations
@@ -21,6 +37,16 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def _linear(out: Dict[str, torch.Tensor], name: str, dense: Dict) -> None:
+    out[f"{name}.weight"] = _t(np.asarray(dense["kernel"]).T.copy())
+    if "bias" in dense:
+        out[f"{name}.bias"] = _t(dense["bias"])
 
 
 def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
@@ -62,3 +88,32 @@ def load_jax_variables(trainer, variables: Dict) -> None:
             trainer.tt_acc[k].copy_(torch.tensor(np.asarray(tt_opt[f"acc_{k}"])))
     if trainer.tt_opt is not None and "t" in tt_opt:
         trainer.tt_opt.count.fill_(int(np.asarray(tt_opt["t"])))
+
+
+def full_graph_state_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    params, stats = variables["params"], variables.get("batch_stats", {}).get("gnn", {})
+    out: Dict[str, torch.Tensor] = {f"embed.{k}": _t(v) for k, v in params["embed"].items()}
+    for name, sub in params["gnn"].items():
+        kind, _, i = name.rpartition("_")
+        if kind == "conv":
+            if "Dense_0" in sub:  # GCN
+                _linear(out, f"gnn.convs.{i}.lin", sub["Dense_0"])
+            else:  # GAT
+                _linear(out, f"gnn.convs.{i}.fc", sub["fc"])
+                if "res_fc" in sub:
+                    _linear(out, f"gnn.convs.{i}.res_fc", sub["res_fc"])
+                out[f"gnn.convs.{i}.attn_l"] = _t(sub["attn_l"])
+                out[f"gnn.convs.{i}.attn_r"] = _t(sub["attn_r"])
+        elif kind == "linear":
+            _linear(out, f"gnn.linears.{i}", sub)
+        elif kind == "bn":
+            out[f"gnn.bns.{i}.weight"] = _t(sub["scale"])
+            out[f"gnn.bns.{i}.bias"] = _t(sub["bias"])
+            out[f"gnn.bns.{i}.running_mean"] = _t(stats[name]["mean"])
+            out[f"gnn.bns.{i}.running_var"] = _t(stats[name]["var"])
+        elif name == "bias_last":
+            out["gnn.bias_last.bias"] = _t(sub["bias"])
+        else:
+            raise ValueError(f"unsupported full-graph param {name!r}")
+    return out
+

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.layers import SAGEConv
+from ..nn.layers import SAGEConv, dropout
 from ..nn.tt_embedding import TTEmbeddingBag
 from ..ops.segment import spmm_mean
 
@@ -35,17 +35,6 @@ def collect_level_ids(seeds: torch.Tensor, layers: Sequence[torch.Tensor]):
     sizes = [lv.shape[1] for lv in levels]
     all_ids = torch.cat([lv.reshape(-1) for lv in levels])
     return all_ids, sizes, B
-
-
-def dropout(h: torch.Tensor, p: float, train: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with an explicit generator (flax ``nn.Dropout``
-    semantics: keep with prob 1-p, scale kept values by 1/(1-p))."""
-    if not train or p == 0.0:
-        return h
-    keep = 1.0 - p
-    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
-    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
 
 
 class SAGE(nn.Module):
@@ -144,8 +133,17 @@ class SAGE(nn.Module):
 
     def apply_conv(self, h_dst: torch.Tensor, h_neigh: torch.Tensor,
                    layer_idx: int) -> torch.Tensor:
+        """One conv layer given the aggregated neighbour features."""
         h = self.convs[layer_idx](h_dst, h_neigh)
         return torch.relu(h) if layer_idx < self.num_layers - 1 else h
+
+    def forward_full(self, h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                     in_deg: torch.Tensor, num_nodes: int, layer_idx: int,
+                     chunk: int = 1 << 22) -> torch.Tensor:
+        """One conv layer over the full graph (layer-wise inference): the
+        mean over every in-edge, then the conv."""
+        return self.apply_conv(h, spmm_mean(h, src, dst, num_nodes, in_deg, chunk=chunk),
+                               layer_idx)
 
     def materialize_features(self, node_ids: torch.Tensor) -> torch.Tensor:
         return self.embed(node_ids)

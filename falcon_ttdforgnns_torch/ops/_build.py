@@ -1,10 +1,12 @@
-"""Build and load the Hopper kernels of ``csrc/tt_kernels.cu``.
+"""Build and load the Hopper kernels of ``csrc/*.cu``.
 
-nvcc compiles the source into a shared library with a plain C interface
-(seconds, no PyTorch headers), keyed on a hash of the source and flags, in
-``falcon_ttdforgnns_torch/build/``; ctypes loads it.  Nothing is built at
-import time: the first CUDA call builds.  A missing nvcc or a failed build
-raises — there is no fallback.
+nvcc compiles each source into its own shared library with a plain C
+interface (seconds, no PyTorch headers), keyed on a hash of the source and
+flags, in ``falcon_ttdforgnns_torch/build/``; ctypes loads it.  Nothing is
+built at import time: the first CUDA call of a source's wrappers builds
+that source, and :func:`build_all` builds every source with one nvcc each,
+all started together.  A missing nvcc or a failed build raises — there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "tt_kernels.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -28,15 +31,26 @@ _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _f = ctypes.c_float
 _pp = ctypes.POINTER(_p)
-_SIGNATURES = {
-    "tt_fwd": [_p, _ll, ctypes.POINTER(_i), _p, _p, _p, _p, _p, _i, _p, _i, _p],
-    "tt_grads": [_p, _p, _i, _ll, ctypes.POINTER(_i), _p, _p, _p, _p, _p, _p],
-    "tt_adam_apply": [_i, ctypes.POINTER(_ll), _pp, _pp, _pp, _pp,
-                      _p, _f, _f, _f, _f, _f, _p],
-    "tt_sgd_apply": [_i, ctypes.POINTER(_ll), _pp, _pp, _f, _p],
-    "tt_adagrad_apply": [_i, ctypes.POINTER(_ll), ctypes.POINTER(_i), _pp, _pp, _pp,
-                         _f, _f, _i, _p],
+# per source: its C functions' argument types, and its error-string function
+_SIGNATURES: Dict[str, Dict[str, list]] = {
+    "tt_kernels": {
+        "tt_fwd": [_p, _ll, ctypes.POINTER(_i), _p, _p, _p, _p, _p, _i, _p, _i, _p],
+        "tt_grads": [_p, _p, _i, _ll, ctypes.POINTER(_i), _p, _p, _p, _p, _p, _p],
+        "tt_adam_apply": [_i, ctypes.POINTER(_ll), _pp, _pp, _pp, _pp,
+                          _p, _f, _f, _f, _f, _f, _p],
+        "tt_sgd_apply": [_i, ctypes.POINTER(_ll), _pp, _pp, _f, _p],
+        "tt_adagrad_apply": [_i, ctypes.POINTER(_ll), ctypes.POINTER(_i), _pp, _pp, _pp,
+                             _f, _f, _i, _p],
+    },
+    "spmm_kernels": {
+        "spmm_seg_mm": [_p, _i, _ll, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
+                        _p, _ll, _p],
+        "spmm_tile_mm": [_p, _i, _ll, _i, _p, _p, _p, _i, _i, _i, _i, _p, _p],
+        "spmm_window_gather": [_p, _i, _ll, _i, _p, _p, _p, _i, _ll, _p, _p],
+    },
 }
+_ERROR_STRING = {"tt_kernels": "tt_error_string", "spmm_kernels": "spmm_error_string"}
+SOURCES = tuple(_SIGNATURES)
 
 
 def find_nvcc() -> str:
@@ -52,43 +66,68 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"tt_kernels_{key.hexdigest()[:16]}.so"
+def _source(name: str) -> Path:
+    if name not in _SIGNATURES:
+        raise ValueError(f"unknown kernel source {name!r}; expected one of {SOURCES}")
+    return CSRC / f"{name}.cu"
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernels if this source has not been built yet.  Returns
-    the library path and the compiler's report (ptxas register and shared
-    memory use; empty when the library already existed)."""
-    so = library_path()
-    if so.exists():
-        return so, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
-    return so, res.stdout + res.stderr
+def library_path(name: str = "tt_kernels") -> Path:
+    key = hashlib.sha256(_source(name).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
+
+
+def build_all(names=SOURCES) -> Dict[str, Tuple[Path, str]]:
+    """Compile every source not built yet, one nvcc process each, all
+    running at once.  Returns {source: (library path, the compiler's
+    report)}; the report (ptxas register and shared memory use) is empty
+    for a library that already existed.  Raises if any build failed."""
+    todo, done = {}, {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            done[name] = (so, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
+        todo[name] = (so, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (so, tmp, proc) in todo.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu ({proc.returncode}):\n{err}")
+            continue
+        os.replace(tmp, so)
+        done[name] = (so, out + err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
+
+
+def build(name: str = "tt_kernels") -> Tuple[Path, str]:
+    """Compile one source if it has not been built yet: (library path,
+    compiler report)."""
+    return build_all((name,))[name]
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    so, _ = build()
+def library(name: str = "tt_kernels") -> ctypes.CDLL:
+    so, _ = build(name)
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = _i
-    lib.tt_error_string.argtypes = [_i]
-    lib.tt_error_string.restype = ctypes.c_char_p
+    err = getattr(lib, _ERROR_STRING[name])
+    err.argtypes = [_i]
+    err.restype = ctypes.c_char_p
     return lib
 
 
-def check(rc: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error code."""
+def check(rc: int, what: str, name: str = "tt_kernels") -> None:
+    """Raise if a launcher of source ``name`` returned a CUDA error code."""
     if rc != 0:
-        msg = library().tt_error_string(rc).decode()
+        msg = getattr(library(name), _ERROR_STRING[name])(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -1,1 +1,3 @@
+from .full_graph import (FullGraphConfig, FullGraphModel, FullGraphTrainer,
+                         log_eps_cross_entropy)
 from .trainer import SageTrainer, TrainConfig

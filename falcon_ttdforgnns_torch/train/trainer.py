@@ -2,7 +2,12 @@
 
 Port of ``falcon_ttdforgnns_tpu/train/trainer.py:SageTrainer``: the host
 sampler feeds static-shape batches to one train step per batch;
-evaluation is full-graph propagation.  The step runs eagerly, one step per
+evaluation is full-graph propagation, its SpMM chosen by ``--spmm``:
+``xla`` the chunked ``index_add_``, ``pallas`` the tiled kernel (B7),
+``blocked`` the window-gather kernel (B9); ``infer_full`` is the
+layer-wise form of it.  The reference takes its XLA route for ``pallas``
+off a TPU; the port runs B7 on the card and its plain version on the CPU,
+so the CPU tests reach the routing.  The step runs eagerly, one step per
 call (the JAX package's multi-step ``fori_loop`` has no counterpart here,
 so ``steps_per_call`` is accepted and has no effect).
 
@@ -38,6 +43,9 @@ import torch.nn.functional as F
 from ..graph.csr import NodeDataset
 from ..graph.sampler import NeighborLoader
 from ..models.sage import SAGE, collect_level_ids
+from ..ops.spmm_blocked import (build_window_tiles, chunk_tiles_host,
+                                default_blocked_tiling, spmm_sum_blocked_dev)
+from ..ops.spmm_tiled import auto_tile_edges, build_spmm_tiles_uniform, spmm_sum_tiled_uniform
 from ..ops.tt_kernels import (tt_fused_adagrad, tt_fused_adam, tt_fused_sgd,
                               tt_fwd, tt_fwd_sr)
 from ..utils import resolve_device
@@ -46,6 +54,11 @@ from .optim import (ADAGRAD_EPS, ADAM_B1, ADAM_B2, ADAM_EPS, ROWWISE_ADAGRAD_EPS
                     TT_OPTIMIZERS, adam_init, adam_update, auto_plateau_patience,
                     bias_corrections, core_update, plateau_init, reduce_on_plateau,
                     tt_acc_init)
+
+
+# full-graph aggregation of evaluate(): "xla" the chunked index_add_ SpMM,
+# "pallas" the tiled kernel (B7), "blocked" the window-gather kernel (B9)
+SPMM_ROUTES = ("xla", "pallas", "blocked")
 
 
 @dataclass
@@ -109,7 +122,6 @@ def _check_supported(cfg: TrainConfig) -> None:
         (cfg.mode != "mixed", "--mode puregpu (ROADMAP A8)"),
         (cfg.dist or cfg.node_shard, "--dist/--node-shard (ROADMAP A16)"),
         (not cfg.use_sample, "--full-neighbor training (ROADMAP A14)"),
-        (cfg.spmm != "xla", f"--spmm {cfg.spmm} (ROADMAP B7-B9)"),
         (cfg.cache_size > 0 or cfg.access_counts, "the hot-row cache (ROADMAP A12)"),
         (cfg.grouped, "--emb-name eff (ROADMAP A13)"),
         (not cfg.use_tt, "--no-tt dense embeddings (ROADMAP A3)"),
@@ -120,6 +132,8 @@ def _check_supported(cfg: TrainConfig) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
     if cfg.tt_optimizer not in TT_OPTIMIZERS:
         raise ValueError(f"unknown tt_optimizer {cfg.tt_optimizer!r}")
+    if cfg.spmm not in SPMM_ROUTES:
+        raise ValueError(f"unknown spmm {cfg.spmm!r}; expected one of {SPMM_ROUTES}")
 
 
 def _warn_inert_flags(cfg: TrainConfig, warn) -> None:
@@ -137,6 +151,23 @@ def _warn_inert_flags(cfg: TrainConfig, warn) -> None:
     if (cfg.bf16_f32_head or cfg.bf16_f32_first) and not (cfg.bf16 or cfg.bf16_tower):
         warn("--bf16-f32-head/--bf16-f32-first have no effect without "
              "--bf16/--bf16-tower (the tower is already f32); running unchanged")
+
+
+@dataclass
+class FullGraphSpmm:
+    """h -> A h over the full graph through one ``--spmm`` route's kernel:
+    "pallas" the uniform tiling and B7, "blocked" the window tiling and B9."""
+
+    route: str
+    arrays: Tuple[torch.Tensor, ...]  # the tiling, on the device
+    meta: Tuple[int, ...]
+    info: Dict[str, int]              # its chunk, tile and slot counts
+    tiling_s: float                   # host seconds to build it
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        if self.route == "pallas":
+            return spmm_sum_tiled_uniform(h, *self.arrays, *self.meta)
+        return spmm_sum_blocked_dev(h, *self.arrays, *self.meta)
 
 
 class _EpochMeter:
@@ -236,6 +267,7 @@ class SageTrainer:
         self.dropout_gen = torch.Generator(device=self.device)
         self.dropout_gen.manual_seed(cfg.seed + 1000)
         self._eval_args = None
+        self._spmms: Dict[str, FullGraphSpmm] = {}
         self._metrics: Dict[str, List[float]] = {"loss": [], "throughput": []}
         self.step = 0
 
@@ -325,24 +357,94 @@ class SageTrainer:
         return meter.summary()
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def evaluate(self) -> Dict[str, float]:
-        """Split accuracies by full-graph propagation over every edge; three
-        scalars come back to the host."""
-        ds = self.ds
+    def _eval_graph(self):
+        """The COO graph, degrees, labels and splits on the device (moved
+        once)."""
         if self._eval_args is None:
+            ds = self.ds
             src, dst = ds.graph.to_coo()
             self._eval_args = tuple(self._tensor(a) for a in (
                 src.astype(np.int64), dst.astype(np.int64),
                 ds.graph.degrees.astype(np.float32), ds.labels.astype(np.int64),
                 ds.train_idx, ds.val_idx, ds.test_idx))
-        src, dst, deg, labels, *splits = self._eval_args
-        logits = self.model.forward_full_graph(src, dst, deg, train=False,
-                                               chunk=self.cfg.edge_chunk)
+        return self._eval_args
+
+    def full_graph_spmm(self, route: str) -> "FullGraphSpmm":
+        """The full-graph sum of ``route`` ("pallas" or "blocked"), its host
+        tiling built on first use and kept on the device."""
+        if route not in self._spmms:
+            ds, n = self.ds, self.ds.num_nodes
+            src, dst = ds.graph.to_coo()
+            t0 = time.perf_counter()
+            if route == "pallas":
+                e_t = auto_tile_edges(len(src), n)
+                # the reference's chunk size, ~1 GB of bf16 messages at the
+                # widest feature dim (a tiling size: the kernel gathers none)
+                width = max(ds.feat_dim, self.cfg.hidden_dim)
+                tu = build_spmm_tiles_uniform(src.astype(np.int32), dst, n, tile_edges=e_t,
+                                              tiles_per_chunk=max(256, (1 << 30) // (e_t * width * 2)))
+                arrays = (tu.src, tu.dstl, tu.w, tu.blkl, tu.blk0)
+                meta = (tu.num_blocks_padded, tu.blocks_per_chunk, tu.block_rows, e_t, n)
+                info = dict(chunks=tu.blk0.shape[0], tiles=tu.blkl.size, slots=tu.src.size,
+                            blocks=-(-n // tu.block_rows), tile_edges=e_t)
+            elif route == "blocked":
+                tile, ct = default_blocked_tiling(self.device)
+                ts = build_window_tiles(src.astype(np.int64), dst.astype(np.int64), n,
+                                        tile=tile, dst_buckets=16, chunk_tiles=ct)
+                arrays = chunk_tiles_host(ts, ct)
+                meta = (tile, n)
+                info = dict(chunks=ts.win.shape[0] // ct, tiles=ts.win.shape[0],
+                            slots=ts.idx.size, tile=tile)
+            else:
+                raise ValueError(f"no tiled SpMM for route {route!r}")
+            self._spmms[route] = FullGraphSpmm(route, tuple(self._tensor(a) for a in arrays),
+                                               meta, info, time.perf_counter() - t0)
+        return self._spmms[route]
+
+    @torch.no_grad()
+    def evaluate(self) -> Dict[str, float]:
+        """Split accuracies by full-graph propagation over every edge through
+        the ``--spmm`` route (on the CPU the kernels' plain versions); three
+        scalars come back to the host."""
+        src, dst, deg, labels, *splits = self._eval_graph()
+        if self.cfg.spmm == "xla":
+            logits = self.model.forward_full_graph(src, dst, deg, train=False,
+                                                   chunk=self.cfg.edge_chunk)
+        else:
+            logits = self._layerwise(self.model.materialize_features(torch.arange(
+                self.ds.num_nodes, dtype=torch.int32, device=self.device)), self.cfg.spmm)
         pred = logits.argmax(-1)
         accs = torch.stack([(pred[i] == labels[i]).float().mean() for i in splits])
         tr_a, va_a, te_a = accs.tolist()
         return {"train_acc": tr_a, "val_acc": va_a, "test_acc": te_a}
+
+    @torch.no_grad()
+    def infer_full(self) -> torch.Tensor:
+        """Layer-wise full-neighbour inference over all nodes: the features
+        materialised ``inference_chunk`` rows at a time, then each conv over
+        the full graph, through the blocked kernel under ``--spmm blocked``
+        and the chunked ``index_add_`` otherwise (as the reference).
+        Returns the (N, num_classes) logits on the device."""
+        cfg, n = self.cfg, self.ds.num_nodes
+        h = torch.cat([self.model.materialize_features(
+            torch.arange(s, min(s + cfg.inference_chunk, n), dtype=torch.int32,
+                         device=self.device)) for s in range(0, n, cfg.inference_chunk)])
+        return self._layerwise(h, "blocked" if cfg.spmm == "blocked" else "xla")
+
+    def _layerwise(self, h: torch.Tensor, route: str) -> torch.Tensor:
+        """Every conv layer over the full graph from the features ``h``: the
+        mean aggregation through ``route``'s SpMM, then the conv."""
+        src, dst, deg, *_ = self._eval_graph()
+        if route == "xla":
+            for li in range(self.cfg.num_layers):
+                h = self.model.forward_full(h, src, dst, deg, self.ds.num_nodes, li,
+                                            chunk=self.cfg.edge_chunk)
+            return h
+        spmm = self.full_graph_spmm(route)
+        degc = torch.clamp(deg, min=1.0)[:, None]
+        for li in range(self.cfg.num_layers):
+            h = self.model.apply_conv(h, spmm(h) / degc, li)
+        return h
 
     def fit(self, epochs: Optional[int] = None) -> Dict[str, Any]:
         cfg = self.cfg

@@ -241,3 +241,172 @@ def test_bf16_mean_is_f32_accumulated_on_card(cuda):
     changes nothing in the port."""
     x = torch.randn(1024, 10, 15, 100, device=cuda).to(torch.bfloat16)
     assert torch.equal(x.mean(dim=2), x.mean(dim=2, dtype=torch.float32).to(torch.bfloat16))
+
+
+# ------------------------------------------------------- SpMM kernels (B7-B9)
+def spmm_case(n, e, seed, d=32):
+    """Dst-sorted edges with weights, some rows without in-edges."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    dst = np.where(dst % 17 == 0, (dst + 1) % n, dst).astype(np.int32)
+    order = np.argsort(dst, kind="stable")
+    w = rng.normal(size=e).astype(np.float32)
+    return rng.normal(size=(n, d)).astype(np.float32), src[order], dst[order], w
+
+
+def spmm_close(got, want, tol):
+    """max|kernel - plain| <= tol * max|plain|: the kernel sums each row in
+    another order (FMA, runs per warp, shared-memory atomics)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert float((got - want).abs().max()) <= tol * max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("n,e,NR,E_t,tpc,d", [
+    (800, 6000, 32, 64, 16, 32),     # chunk seams: pad blocks meet the next chunk
+    (500, 4000, 32, 64, 8, 100),     # two column slabs, the second ragged
+    (3000, 60000, 128, 2048, 4, 256),  # the trainer's tiling sizes
+    (2000, 20000, 256, 1024, 4, 64),   # 64 KB of shared memory: the opt-in
+])
+def test_spmm_tiled_kernel_matches_plain(cuda, n, e, NR, E_t, tpc, d):
+    from falcon_ttdforgnns_torch.ops import spmm_tiled as P
+    h, src, dst, w = spmm_case(n, e, n + e, d)
+    tu = P.build_spmm_tiles_uniform(src, dst, n, edge_weight=w, block_rows=NR,
+                                    tile_edges=E_t, tiles_per_chunk=tpc)
+    args = [torch.as_tensor(a, device=cuda) for a in (tu.src, tu.dstl, tu.w, tu.blkl, tu.blk0)]
+    meta = (tu.num_blocks_padded, tu.blocks_per_chunk, NR, E_t, n)
+    ht = torch.tensor(h, device=cuda)
+    P.reset_launch_counts()
+    for hh, cd in ((ht, torch.float32), (ht.to(torch.bfloat16), torch.float32),
+                   (ht, torch.bfloat16)):
+        got = P.spmm_sum_tiled_uniform(hh, *args, *meta, compute_dtype=cd)
+        want = P.seg_mm_plain(hh, *args, *meta[:4], compute_dtype=cd)[:n]
+        spmm_close(got, want, 1e-5)
+    assert P.launch_counts() == {"spmm_tiled": 2, "spmm_tiled[bf16]": 1,
+                                 "spmm_tile_partials": 0}
+    exact = np.zeros((n, d))
+    np.add.at(exact, dst, h[src].astype(np.float64) * w[:, None])
+    spmm_close(P.spmm_sum_tiled_uniform(ht, *args, *meta).double().cpu(),
+               torch.tensor(exact), 1e-5)
+    tiles = P.build_spmm_tiles(src, dst, n, edge_weight=w, block_rows=NR, tile_edges=E_t)
+    spmm_close(P.spmm_sum_tiled(ht, tiles, n), P.spmm_sum_tiled(ht.cpu(), tiles, n).to(cuda),
+               1e-5)
+
+
+def test_spmm_tile_partials_kernel_matches_plain(cuda):
+    from falcon_ttdforgnns_torch.ops import spmm_tiled as P
+    n, e, NR, E_t = 1000, 9000, 32, 64
+    h, src, dst, w = spmm_case(n, e, 7, 100)
+    tiles = P.build_spmm_tiles(src, dst, n, edge_weight=w, block_rows=NR, tile_edges=E_t)
+    args = [torch.as_tensor(a, device=cuda) for a in (tiles.src, tiles.dstl, tiles.w, tiles.blk)]
+    ht = torch.tensor(h, device=cuda)
+    P.reset_launch_counts()
+    spmm_close(P.spmm_sum_tile_partials(ht, *args, tiles.num_blocks, NR, E_t, n),
+               P.spmm_sum_tile_partials(ht.cpu(), *[a.cpu() for a in args], tiles.num_blocks,
+                                        NR, E_t, n).to(cuda), 1e-5)
+    spmm_close(P.tile_mm_plain(ht, args[0], args[1], args[2], NR, E_t),
+               P.tile_mm_plain(ht.cpu(), *[a.cpu() for a in args[:3]], NR, E_t).to(cuda), 1e-5)
+    assert P.launch_counts()["spmm_tile_partials"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_gather_kernel_bit_identical(cuda, dtype):
+    from falcon_ttdforgnns_torch.ops import spmm_blocked as B
+    n, e, d, T = 3000, 40000, 100, 256
+    rng = np.random.default_rng(8)
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    w = rng.normal(size=e).astype(np.float32)
+    ts = B.build_window_tiles(src, dst, n, edge_weight=w, tile=T, dst_buckets=4, chunk_tiles=8)
+    h = torch.tensor(rng.normal(size=(n, d)).astype(np.float32), device=cuda).to(dtype)
+    B.reset_launch_counts()
+    for win, idx, _, ww in zip(*(torch.as_tensor(a, device=cuda)
+                                 for a in B.chunk_tiles_host(ts, 8))):
+        got = B.window_gather(h, win, idx, ww, T)
+        want = B.window_gather_plain(h, win, idx, ww, T)
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert B.launch_counts()["spmm_gather"] == ts.win.shape[0] // 8
+
+
+def test_blocked_spmm_and_its_grad_on_card(cuda):
+    """Forward and the transposed-tiling backward on the card against the
+    same operator on the CPU (index_add_ adds in another order on the card:
+    1e-5 of the largest)."""
+    from falcon_ttdforgnns_torch.ops import spmm_blocked as B
+    n, e, d = 2000, 30000, 64
+    rng = np.random.default_rng(9)
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    w = rng.random(e).astype(np.float32)
+    h0 = rng.normal(size=(n, d)).astype(np.float32)
+    grads = []
+    for dev, tile, ct in ((cuda, 4096, 512), (torch.device("cpu"), 4096, 512)):
+        op = B.build_blocked_spmm(src, dst, n, edge_weight=w, tile=tile, dst_buckets=16,
+                                  chunk_tiles=ct, device=dev)
+        h = torch.tensor(h0, device=dev, requires_grad=True)
+        out = B.apply_blocked_spmm(h, op)
+        (torch.sin(out) * out).sum().backward()
+        grads.append((out.detach().cpu(), h.grad.cpu()))
+    spmm_close(grads[0][0], grads[1][0], 1e-5)
+    spmm_close(grads[0][1], grads[1][1], 1e-4)
+
+
+def test_spmm_wrappers_raise_on_bad_input(cuda):
+    from falcon_ttdforgnns_torch.ops import spmm_blocked as B
+    from falcon_ttdforgnns_torch.ops import spmm_tiled as P
+    h, src, dst, w = spmm_case(300, 2000, 1)
+    tu = P.build_spmm_tiles_uniform(src, dst, 300, edge_weight=w, block_rows=32,
+                                    tile_edges=64, tiles_per_chunk=8)
+    args = [torch.as_tensor(a, device=cuda) for a in (tu.src, tu.dstl, tu.w, tu.blkl, tu.blk0)]
+    meta = (tu.num_blocks_padded, tu.blocks_per_chunk, 32, 64, 300)
+    ht = torch.tensor(h, device=cuda)
+    with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
+        P.spmm_sum_tiled_uniform(ht, args[0].cpu(), *args[1:], *meta)
+    with pytest.raises(TypeError):
+        P.spmm_sum_tiled_uniform(ht, args[0].long(), *args[1:], *meta)
+    with pytest.raises(ValueError):  # block ids out of order
+        P.spmm_sum_tiled_uniform(ht, *args[:3], args[3].flip(1).contiguous(), args[4], *meta)
+    with pytest.raises(ValueError):
+        B.window_gather(ht, torch.zeros(1, dtype=torch.int32, device=cuda),
+                        torch.zeros(64, dtype=torch.int64, device=cuda),
+                        torch.zeros(64, device=cuda), 64)
+
+
+def test_blocked_gcn_step_launches_spmm_gather(cuda):
+    """A full-graph GCN step with --spmm blocked on the card (B9 forward and
+    backward per layer, the TT lookup's two kernels) against the same step
+    on the CPU (plain versions, the CPU's smaller tiling): losses within
+    1e-4, parameters within 3e-3 lr."""
+    from falcon_ttdforgnns_torch.graph import hard_synthetic_dataset
+    from falcon_ttdforgnns_torch.ops import spmm_blocked as B
+    from falcon_ttdforgnns_torch.train import FullGraphConfig, FullGraphTrainer
+    ds = hard_synthetic_dataset(num_nodes=2000, avg_degree=5, num_classes=4, feat_dim=16,
+                                seed=0)
+    cfg = FullGraphConfig(model="gcn", spmm="blocked", hidden_dim=16, num_layers=2,
+                          tt_ranks=(4, 4), dropout=0.0, warmup_epochs=3)
+    gpu, cpu = FullGraphTrainer(ds, cfg), FullGraphTrainer(ds, cfg, device="cpu")
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    B.reset_launch_counts()
+    tt_kernels.reset_launch_counts()
+    for e in range(2):
+        lg, lc = gpu.train_epoch(e)["loss"], cpu.train_epoch(e)["loss"]
+        assert np.isfinite(lg) and lg == pytest.approx(lc, rel=1e-4)
+    assert B.launch_counts()["spmm_gather"] >= 2 * 2 * cfg.num_layers
+    counts = tt_kernels.launch_counts()
+    assert counts["tt_fwd"] == 2 and counts["tt_grads"] == 2
+    for a, b in zip(gpu.model.parameters(), cpu.model.parameters()):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= 3 * 1e-3 * cfg.lr
+    assert 0.0 <= gpu.evaluate()["test_acc"] <= 1.0
+
+
+@pytest.mark.parametrize("spmm,kernel", [("pallas", "spmm_tiled"), ("blocked", "spmm_gather")])
+def test_sage_evaluate_routes_launch_their_kernels(cuda, spmm, kernel):
+    from falcon_ttdforgnns_torch.ops import spmm_blocked as B
+    from falcon_ttdforgnns_torch.ops import spmm_tiled as P
+    base, tr = tiny_trainer(), tiny_trainer(spmm=spmm)
+    tr.model.load_state_dict(base.model.state_dict())
+    P.reset_launch_counts()
+    B.reset_launch_counts()
+    ours, xla = tr.evaluate(), base.evaluate()
+    for k in ours:  # at most one near-tied argmax apart of 400 nodes
+        assert abs(ours[k] - xla[k]) <= 1.0 / 400 + 1e-7
+    counts = {**P.launch_counts(), **B.launch_counts()}
+    assert counts[kernel] >= 2  # one per layer (blocked: one per chunk per layer)

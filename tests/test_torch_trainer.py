@@ -211,7 +211,7 @@ def test_fit_runs_and_reports(datasets):
 
 
 @pytest.mark.parametrize("kw", [dict(mode="puregpu"), dict(cache_size=8), dict(grouped=True),
-                                dict(eval_sampled=True), dict(spmm="pallas")])
+                                dict(eval_sampled=True), dict(use_sample=False)])
 def test_unported_options_raise(datasets, kw):
     with pytest.raises(NotImplementedError):
         SageTrainer(datasets[0], TrainConfig(**{**TINY, **kw}), device="cpu")
@@ -232,8 +232,62 @@ def test_cli_runs_on_cpu(capsys, tmp_path):
     cli.main(common + ["--epochs", "1"])
     assert '"best"' in capsys.readouterr().out
     cli.main(common + ["--run-one"])
-    with pytest.raises(NotImplementedError):
-        cli.main(common + ["--model", "gcn"])
+    cli.main(common + ["--model", "gcn", "--run-one"])  # full-graph GCN runs through the CLI
+    with pytest.raises(ValueError):  # the tiled SpMM is SAGE evaluation's, as in JAX
+        cli.main(common + ["--model", "gcn", "--spmm", "pallas"])
+
+
+@pytest.mark.parametrize("spmm", ["pallas", "blocked"])
+def test_evaluate_spmm_routes_match_xla_and_jax(datasets, spmm):
+    """evaluate() through the tiled (B7) and the blocked (B9) SpMM, on the
+    CPU their plain versions, gives the xla route's accuracies and the JAX
+    trainer's (its pallas route is the XLA one off a TPU; its blocked route
+    runs Pallas in interpret mode): at most one near-tied argmax apart.
+    The tiled aggregate itself is held to the Pallas kernel in interpret
+    mode on the same graph (1e-5 of the largest value)."""
+    from falcon_ttdforgnns_tpu.ops import spmm_pallas as JP
+    ds, jds = datasets
+    jtr = JaxTrainer(jds, JaxConfig(spmm=spmm, steps_per_call=1, **TINY))
+    variables = jax.tree.map(np.asarray, jtr.variables)
+    xla = SageTrainer(ds, TrainConfig(**TINY), device="cpu")
+    tr = SageTrainer(ds, TrainConfig(spmm=spmm, **TINY), device="cpu")
+    for t in (xla, tr):
+        load_jax_variables(t, variables)
+    ours, base, theirs = tr.evaluate(), xla.evaluate(), jtr.evaluate()
+    for split, idx in (("train", ds.train_idx), ("val", ds.val_idx), ("test", ds.test_idx)):
+        for other in (base, theirs):
+            assert abs(ours[f"{split}_acc"] - other[f"{split}_acc"]) <= 1.0 / len(idx) + 1e-7
+    assert tr.full_graph_spmm(spmm).info["chunks"] >= 1
+    if spmm == "pallas":
+        src, dst = ds.graph.to_coo()
+        tu = JP.build_spmm_tiles_uniform(src.astype(np.int32), dst, ds.num_nodes,
+                                         tile_edges=tr.full_graph_spmm("pallas").meta[3],
+                                         tiles_per_chunk=256)
+        h = np.random.default_rng(0).normal(size=(ds.num_nodes, 16)).astype(np.float32)
+        want = JP.spmm_sum_tiled_uniform(
+            jnp.asarray(h), jnp.asarray(tu.src), jnp.asarray(tu.dstl), jnp.asarray(tu.w),
+            jnp.asarray(tu.blkl), jnp.asarray(tu.first), jnp.asarray(tu.blk0),
+            tu.num_blocks_padded, tu.blocks_per_chunk, tu.block_rows, tu.tile_edges,
+            ds.num_nodes, interpret=True)
+        got = tr.full_graph_spmm("pallas")(torch.tensor(h)).numpy()
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("spmm", ["xla", "blocked"])
+def test_infer_full_matches_jax(datasets, spmm):
+    """Layer-wise inference (chunked materialise, one conv per layer over
+    the full graph) against the JAX trainer's infer_full: logits within
+    1e-5 of the largest."""
+    ds, jds = datasets
+    kw = dict(TINY, spmm=spmm, inference_chunk=300)
+    jtr = JaxTrainer(jds, JaxConfig(steps_per_call=1, **kw))
+    tr = SageTrainer(ds, TrainConfig(**kw), device="cpu")
+    load_jax_variables(tr, jax.tree.map(np.asarray, jtr.variables))
+    want = jtr.infer_full()
+    got = tr.infer_full().numpy()
+    assert got.shape == (ds.num_nodes, ds.num_classes)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * float(np.abs(want).max()))
 
 
 def test_port_never_imports_jax():

@@ -65,7 +65,22 @@
 //     Reads scal = [lr_eff, c1, c2] from device memory; updates cores, m, v.
 //   tt_sgd_apply      with tt_grads replaces tt_pallas.py:_sgd_kernel.
 //     core -= lr * g; the gradient was taken at the pre-step cores, since
-//     tt_grads has finished before this kernel starts.
+//     tt_grads has finished before this kernel starts.  Bound: 198,160
+//     values, 2.4 MB read and written, 0.7 us at 3.35 TB/s — far below a
+//     launch, so what sets its time is the launch and the Python path that
+//     makes it.  The design cuts both: blockIdx.y picks the core (no
+//     per-element search over the core offsets), the body moves a float4 of
+//     core and gradient per thread where both pointers are 16-byte aligned
+//     (all three products cores are multiples of 4 values) with a scalar
+//     tail, and the grid is one float4 per thread of the largest core,
+//     capped at 4 blocks per SM per core (the SM count asked once).  The
+//     wrapper validates the cores once per argument set and keeps their
+//     ctypes arrays, checking only the step's new gradients on each call
+//     (ops/tt_kernels.py, _launch_args), as for Adam and adagrad; the
+//     launcher picks each core's pointers into separate kernel parameters.
+//     Folding -lr * g into the cores inside tt_grads is
+//     not done: ~6,700 atomic adds per address would round every add at
+//     the core's ulp, far off the plain version.
 //   tt_adagrad_apply  with tt_grads replaces tt_pallas.py:_adagrad_kernel.
 //     Per element: a += g^2, core -= lr * g / (sqrt(a) + eps), one thread
 //     per value.  Rowwise: one accumulator per p-row of each core; one warp
@@ -78,6 +93,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "device_info.cuh"
 
 namespace {
 
@@ -117,6 +134,8 @@ struct OptPtrs {
   int F[kMaxCores];
   int T;
 };
+
+constexpr int kSgdThreads = 256;
 
 enum class Store { kF32, kBF16, kBF16SR };
 
@@ -382,14 +401,43 @@ __global__ void tt_adam_kernel(OptPtrs a, const float* __restrict__ scal,
   }
 }
 
-__global__ void tt_sgd_kernel(OptPtrs a, float lr) {
-  const long long n = a.off[a.T];
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int k = core_of(a, i);
-    const long long j = i - a.off[k];
-    a.core[k][j] = __fsub_rn(a.core[k][j], __fmul_rn(lr, a.g[k][j]));
+__device__ __forceinline__ float sgd_step(float c, float g, float lr) {
+  return __fsub_rn(c, __fmul_rn(lr, g));
+}
+
+// grid (x, T): blockIdx.y is the core; the x blocks stride over its values,
+// four at a time (float4) when the core and its gradient are both 16-byte
+// aligned, then one at a time over the rest.
+// The pointers and sizes are separate parameters, selected by compares: an
+// index into a parameter struct by blockIdx.y makes every thread copy the
+// struct to local memory (104 bytes a thread, ~3x the bytes of the update).
+__global__ void __launch_bounds__(kSgdThreads) tt_sgd_kernel(
+    float* c0, float* c1, float* c2, float* c3, const float* g0, const float* g1,
+    const float* g2, const float* g3, long long n0, long long n1, long long n2,
+    long long n3, float lr) {
+  const unsigned k = blockIdx.y;
+  float* c = k == 0 ? c0 : k == 1 ? c1 : k == 2 ? c2 : c3;
+  const float* g = k == 0 ? g0 : k == 1 ? g1 : k == 2 ? g2 : g3;
+  const long long n = k == 0 ? n0 : k == 1 ? n1 : k == 2 ? n2 : n3;
+  const long long tid = (long long)blockIdx.x * kSgdThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kSgdThreads;
+  long long tail = 0;
+  if (((reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(g)) & 15) == 0) {
+    float4* c4 = reinterpret_cast<float4*>(c);
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+    const long long n4 = n >> 2;
+    for (long long i = tid; i < n4; i += stride) {
+      float4 v = c4[i];
+      const float4 d = __ldg(g4 + i);
+      v.x = sgd_step(v.x, d.x, lr);
+      v.y = sgd_step(v.y, d.y, lr);
+      v.z = sgd_step(v.z, d.z, lr);
+      v.w = sgd_step(v.w, d.w, lr);
+      c4[i] = v;
+    }
+    tail = n4 << 2;
   }
+  for (long long i = tail + tid; i < n; i += stride) c[i] = sgd_step(c[i], __ldg(g + i), lr);
 }
 
 // per element: s1 is the accumulator, shaped like the core
@@ -584,13 +632,27 @@ int tt_adam_apply(int T, const long long* n, void* const* cores, void* const* ms
   return cudaGetLastError();
 }
 
-// In-place SGD on T cores: core -= lr * g.
-int tt_sgd_apply(int T, const long long* n, void* const* cores,
-                 const void* const* grads, float lr, void* stream) {
-  OptPtrs a;
-  if (!opt_ptrs(T, n, nullptr, cores, nullptr, nullptr, grads, &a))
-    return cudaErrorInvalidValue;
-  tt_sgd_kernel<<<elementwise_blocks(a), 256, 0, static_cast<cudaStream_t>(stream)>>>(a, lr);
+// In-place SGD on T cores: core k -= lr * g_k over its n[k] values.
+int tt_sgd_apply(int T, const long long* n, void* const* cores, const void* const* grads,
+                 float lr, void* stream) {
+  if (T < 1 || T > kMaxCores) return cudaErrorInvalidValue;
+  float* c[kMaxCores] = {};
+  const float* g[kMaxCores] = {};
+  long long m[kMaxCores] = {};
+  long long most = 0;
+  for (int k = 0; k < T; ++k) {
+    if (n[k] <= 0) return cudaErrorInvalidValue;
+    c[k] = static_cast<float*>(cores[k]);
+    g[k] = static_cast<const float*>(grads[k]);
+    m[k] = n[k];
+    if (n[k] > most) most = n[k];
+  }
+  // one float4 per thread for the largest core, at most 4 blocks per SM per core
+  const long long want = (most / 4 + kSgdThreads - 1) / kSgdThreads;
+  const long long cap = 4LL * sm_count();
+  const dim3 grid((unsigned)(want < 1 ? 1 : (want > cap ? cap : want)), (unsigned)T);
+  tt_sgd_kernel<<<grid, kSgdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      c[0], c[1], c[2], c[3], g[0], g[1], g[2], g[3], m[0], m[1], m[2], m[3], lr);
   return cudaGetLastError();
 }
 

@@ -20,6 +20,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Tuple
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -45,7 +47,7 @@ _SIGNATURES: Dict[str, Dict[str, list]] = {
     "spmm_kernels": {
         "spmm_seg_mm": [_p, _i, _ll, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
                         _p, _ll, _p],
-        "spmm_tile_mm": [_p, _i, _ll, _i, _p, _p, _p, _i, _i, _i, _i, _p, _p],
+        "spmm_tile_sum": [_p, _i, _ll, _i, _p, _p, _p, _p, _ll, _i, _i, _i, _p, _ll, _p],
         "spmm_window_gather": [_p, _i, _ll, _i, _p, _p, _p, _i, _ll, _p, _p],
     },
 }
@@ -73,7 +75,11 @@ def _source(name: str) -> Path:
 
 
 def library_path(name: str = "tt_kernels") -> Path:
+    """The library of one source, keyed on the source, the headers of
+    ``csrc/`` it may include, and the flags."""
     key = hashlib.sha256(_source(name).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
     return BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
 
 
@@ -124,6 +130,14 @@ def library(name: str = "tt_kernels") -> ctypes.CDLL:
     err.argtypes = [_i]
     err.restype = ctypes.c_char_p
     return lib
+
+
+def current_stream(device_index: int) -> int:
+    """The current stream of CUDA device ``device_index``, as the launchers
+    take it: the raw handle that PyTorch's own generated kernels are launched
+    on, read without making a ``torch.cuda.Stream`` object (host time per
+    call: chip_smoke.py's "current stream" line)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check(rc: int, what: str, name: str = "tt_kernels") -> None:

@@ -178,7 +178,7 @@ def window_gather(h: torch.Tensor, win: torch.Tensor, idx: torch.Tensor,
     rc = _build.library("spmm_kernels").spmm_window_gather(
         h.data_ptr(), int(h.dtype == torch.bfloat16), h.shape[0], h.shape[1],
         win.data_ptr(), idx.data_ptr(), w.data_ptr(), tile, n_slots, out.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
+        _build.current_stream(h.get_device()))
     _build.check(rc, "spmm_window_gather", "spmm_kernels")
     if n_slots:
         _launches["spmm_gather"] += 1

@@ -1,5 +1,5 @@
 """Tiled SpMM (``--spmm pallas``): the host tilers, the wrappers of the
-Hopper kernels ``spmm_seg_mm`` and ``spmm_tile_mm`` (``csrc/spmm_kernels.cu``)
+Hopper kernels ``spmm_seg_mm`` and ``spmm_tile_sum`` (``csrc/spmm_kernels.cu``)
 and their plain PyTorch versions.
 
 Port of ``falcon_ttdforgnns_tpu/ops/spmm_pallas.py``:
@@ -13,7 +13,8 @@ wrapper                     replaces (TPU kernel)              launch count
 ``spmm_sum_tile_partials``  ``_tile_mm_kernel``                ``spmm_tile_partials``
 ==========================  =================================  =======================
 
-With ``compute_dtype=torch.bfloat16`` the count is ``spmm_tiled[bf16]``.
+With ``compute_dtype=torch.bfloat16`` the counts are ``spmm_tiled[bf16]``
+and ``spmm_tile_partials[bf16]``.
 
 The tilers are numpy copies of the reference's, array for array.  Dst-
 sorted edges are cut into tiles of at most E_t slots (src, dstl, w) whose
@@ -26,6 +27,13 @@ the wrappers take neither: a block's value is the sum of its tiles.  For
 the uniform tiling the result is the reference's scan, in which a chunk's
 pad blocks are overwritten by the next chunk: each block comes from the
 last chunk in order that covers it.
+
+``spmm_sum_tile_partials`` keeps the reference's two stages only in its
+plain version (:func:`tile_mm_plain`, one (NR, D) partial per tile, then
+:func:`_sum_partials` by block id), which the tests hold to JAX and the
+kernel to.  On the card there are no partials: one memset zeroes the
+(num_nodes, D) output and one kernel adds every slot's ``w * h[src]``
+into its row with vector atomics at the end of each run of one row.
 
 Precision: the reference gathers and multiplies in bf16 on a TPU and in
 f32 in interpret mode.  The port computes in f32 on both devices by
@@ -45,7 +53,8 @@ import torch
 
 from . import _build
 
-KERNELS = ("spmm_tiled", "spmm_tiled[bf16]", "spmm_tile_partials")
+KERNELS = ("spmm_tiled", "spmm_tiled[bf16]", "spmm_tile_partials",
+           "spmm_tile_partials[bf16]")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -285,10 +294,6 @@ def _check_h(h: torch.Tensor) -> None:
         raise ValueError(f"h must be a contiguous (N, D) tensor, got {tuple(h.shape)}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _launch_seg_mm(h, src, dstl, w, blkl, blk0, out_rows, NBC, NR, E_t, compute_dtype):
     """One launch over every chunk: (out_rows, D) f32."""
     h_g = _gather_dtype(h, compute_dtype)
@@ -307,7 +312,8 @@ def _launch_seg_mm(h, src, dstl, w, blkl, blk0, out_rows, NBC, NR, E_t, compute_
     rc = _build.library("spmm_kernels").spmm_seg_mm(
         h_g.data_ptr(), int(h_g.dtype == torch.bfloat16), h_g.shape[0], h_g.shape[1],
         src.data_ptr(), dstl.data_ptr(), w.data_ptr(), blkl.data_ptr(), blk0.data_ptr(),
-        C, TC, NBC, NR, E_t, int(bf16), out.data_ptr(), out_rows, _stream())
+        C, TC, NBC, NR, E_t, int(bf16), out.data_ptr(), out_rows,
+        _build.current_stream(h.get_device()))
     _build.check(rc, "spmm_seg_mm", "spmm_kernels")
     _launches["spmm_tiled[bf16]" if bf16 else "spmm_tiled"] += 1
     return out
@@ -380,25 +386,29 @@ def spmm_sum_tile_partials(h: torch.Tensor, src: torch.Tensor, dstl: torch.Tenso
                            w: torch.Tensor, blk: torch.Tensor, num_blocks: int,
                            block_rows: int, tile_edges: int, num_nodes: int,
                            compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Two stages: one (NR, D) f32 partial per tile (the kernel), then the
-    partials summed by block id with ``index_add_``."""
+    """out[v] = sum_{u->v} w * h[u] over the flat tiling (:class:`SpmmTiles`'s
+    ``src``, ``dstl``, ``w``, ``blk`` as tensors): (num_nodes, D) f32.  On
+    the CPU the reference's two stages (:func:`tile_partials_plain`); on the
+    card one memset and one kernel that adds every slot straight into the
+    output, with no per-tile partials and no segment sum."""
     if _on_cpu(h, src, dstl, w, blk):
         return tile_partials_plain(h, src, dstl, w, blk, num_blocks, block_rows, tile_edges,
                                    num_nodes, compute_dtype)
     NR, E_t, D = block_rows, tile_edges, h.shape[1]
     T = blk.shape[0]
-    h_g = _gather_dtype(h, compute_dtype)
+    h_g = _gather_dtype(h, compute_dtype)  # bf16 compute gathers bf16 rows, half the bytes
     _check_h(h_g)
-    for name, t, dt in (("src", src, torch.int32), ("dstl", dstl, torch.int32),
-                        ("w", w, torch.float32)):
-        _check(t, name, dt, T * E_t)
-    partials = torch.empty((T * NR, D), dtype=torch.float32, device=h.device)
-    if T > 0:
-        bf16 = compute_dtype == torch.bfloat16
-        rc = _build.library("spmm_kernels").spmm_tile_mm(
-            h_g.data_ptr(), int(h_g.dtype == torch.bfloat16), h_g.shape[0], D,
-            src.data_ptr(), dstl.data_ptr(), w.data_ptr(), T, NR, E_t, int(bf16),
-            partials.data_ptr(), _stream())
-        _build.check(rc, "spmm_tile_mm", "spmm_kernels")
-        _launches["spmm_tile_partials"] += 1
-    return _sum_partials(partials, blk, num_blocks, NR, num_nodes)
+    for name, t, dt, n in (("src", src, torch.int32, T * E_t),
+                           ("dstl", dstl, torch.int32, T * E_t),
+                           ("w", w, torch.float32, T * E_t), ("blk", blk, torch.int32, T)):
+        _check(t, name, dt, n)
+    out = torch.empty((num_nodes, D), dtype=torch.float32, device=h.device)
+    bf16 = compute_dtype == torch.bfloat16
+    rc = _build.library("spmm_kernels").spmm_tile_sum(
+        h_g.data_ptr(), int(h_g.dtype == torch.bfloat16), h_g.shape[0], D, src.data_ptr(),
+        dstl.data_ptr(), w.data_ptr(), blk.data_ptr(), T, NR, E_t,
+        int(bf16), out.data_ptr(), num_nodes, _build.current_stream(h.get_device()))
+    _build.check(rc, "spmm_tile_sum", "spmm_kernels")
+    if T > 0 and num_nodes > 0:
+        _launches["spmm_tile_partials[bf16]" if bf16 else "spmm_tile_partials"] += 1
+    return out

@@ -43,8 +43,12 @@ _launches = dict.fromkeys(KERNELS, 0)
 
 
 def reset_launch_counts() -> None:
+    """Zero every launch count and the update wrappers' argument-cache
+    misses (:func:`arg_cache_misses`)."""
+    global _arg_misses
     for name in KERNELS:
         _launches[name] = 0
+    _arg_misses = 0
 
 
 def launch_counts() -> dict:
@@ -93,10 +97,6 @@ def _core_ptrs(cores: Sequence[torch.Tensor]):
     return ptrs + [None] * (4 - len(ptrs))
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 # ------------------------------------------------------------------ tt_fwd
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -118,7 +118,7 @@ def _launch_fwd(shapes, cores, ids, out_dtype, out_kind, seed=None, block=0):
     rc = _build.library().tt_fwd(ids.data_ptr(), B, _spec(shapes), *_core_ptrs(cores),
                                  out.data_ptr(), out_kind,
                                  None if seed is None else seed.data_ptr(), block,
-                                 _stream())
+                                 _build.current_stream(ids.get_device()))
     _build.check(rc, "tt_fwd")
     return out
 
@@ -218,7 +218,7 @@ def tt_grads(shapes: TTShapes, cores: Sequence[torch.Tensor], ids: torch.Tensor,
     if B > 0:
         rc = _build.library().tt_grads(ids.data_ptr(), d_out.data_ptr(), int(bf16), B,
                                        _spec(shapes), *_core_ptrs(cores),
-                                       out.data_ptr(), _stream())
+                                       out.data_ptr(), _build.current_stream(ids.get_device()))
         _build.check(rc, "tt_grads")
         _launches["tt_grads[bf16]" if bf16 else "tt_grads"] += 1
     grads, off = [], 0
@@ -230,8 +230,71 @@ def tt_grads(shapes: TTShapes, cores: Sequence[torch.Tensor], ids: torch.Tensor,
 
 
 # ----------------------------------------------------------- update kernels
+# The update kernels run in microseconds, so the Python path that launches
+# them is most of their cost.  The tensors that live across steps, updated
+# in place (the cores and the optimizer state), are validated once per
+# argument set, and their ctypes arguments kept under a key of each one's
+# address, shape, dtype, device index and contiguity: any change validates
+# anew and raises as a first call would.  The gradients (and Adam's scal)
+# are new tensors every step, so each call checks them and writes their
+# addresses into the set's arguments (_step_ptrs).
+_ARGS: dict = {}
+_ARGS_MAX = 64
+_arg_misses = 0
+
+
+def arg_cache_misses() -> int:
+    """Argument sets validated anew since :func:`reset_launch_counts`; the
+    rest of the update launches reused a kept set."""
+    return _arg_misses
+
+
+def _on_card(cores, *rest) -> bool:
+    """The one cheap check: the first core on a CUDA device.  Otherwise
+    ``_on_cpu`` raises on a device mix before the plain version runs; a CPU
+    tensor among CUDA ones fails the checks of the kernel path."""
+    if cores and cores[0].is_cuda:
+        return True
+    return not _on_cpu(*cores, *[t for ts in rest for t in ts])
+
+
+def _launch_args(name: str, kept, make, *make_args):
+    """``make(*make_args)`` (which validates and builds the ctypes
+    arguments), once per argument set of the long-lived tensors ``kept``."""
+    global _arg_misses
+    key = (name, *[(t.data_ptr(), t.shape, t.dtype, t.get_device(), t.is_contiguous())
+                   for t in kept])
+    args = _ARGS.get(key)
+    if args is None:
+        _on_cpu(*kept)  # raises on a device mix
+        args = make(*make_args)
+        if len(_ARGS) >= _ARGS_MAX:
+            _ARGS.clear()
+        _ARGS[key] = args
+        _arg_misses += 1
+    return args
+
+
+def _step_ptrs(arr, cores, grads, dev: int) -> None:
+    """Check this step's gradients as a first call would and write their
+    addresses into the kept array ``arr``."""
+    if len(grads) != len(cores):
+        raise ValueError(f"expected {len(cores)} gradients, got {len(grads)}")
+    for k, g in enumerate(grads):
+        if (g.get_device() != dev or g.dtype is not torch.float32
+                or g.shape != cores[k].shape or not g.is_contiguous()):
+            if g.get_device() != dev:
+                _on_cpu(cores[k], g)  # raises: another device than the cores'
+            _check(g, f"g_{k}", torch.float32, cores[k].shape)  # raises
+        arr[k] = g.data_ptr()
+
+
 def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def _sizes(cores):
+    return (ctypes.c_longlong * len(cores))(*[c.numel() for c in cores])
 
 
 def _check_update(name, cores, grads, *states) -> None:
@@ -255,23 +318,31 @@ def tt_adam_plain(cores, ms, vs, grads, scal, b1: float, b2: float,
         c.sub_(lr * (m * c1) / (torch.sqrt(v * c2) + eps))
 
 
+def _adam_args(cores, ms, vs, grads):
+    _check_update("tt_adam_apply", cores, grads, ms, vs)
+    for k in range(len(cores)):
+        _check(ms[k], f"m_{k}", torch.float32, cores[k].shape)
+        _check(vs[k], f"v_{k}", torch.float32, cores[k].shape)
+    return (_build.library().tt_adam_apply, len(cores), _sizes(cores), _ptrs(cores),
+            _ptrs(ms), _ptrs(vs), _ptrs(grads), cores[0].get_device())
+
+
 def tt_adam_apply(cores, ms, vs, grads, scal: torch.Tensor, b1: float,
                   b2: float, eps: float) -> None:
     """In-place Adam step on the TT cores and their moments; ``scal`` is a
     (3,) f32 device tensor, read by the kernel without a host sync."""
-    if _on_cpu(scal, *cores, *ms, *vs, *grads):
+    if not _on_card(cores, ms, vs, grads, (scal,)):
         return tt_adam_plain(cores, ms, vs, grads, scal, b1, b2, eps)
-    _check_update("tt_adam_apply", cores, grads, ms, vs)
+    fn, T, n, c, m, v, g, dev = _launch_args("tt_adam_apply", (*cores, *ms, *vs), _adam_args,
+                                              cores, ms, vs, grads)
+    _step_ptrs(g, cores, grads, dev)
+    if scal.get_device() != dev:
+        _on_cpu(cores[0], scal)  # raises: another device than the cores'
     _check(scal, "scal", torch.float32, (3,))
-    for k in range(len(cores)):
-        _check(ms[k], f"m_{k}", torch.float32, cores[k].shape)
-        _check(vs[k], f"v_{k}", torch.float32, cores[k].shape)
-    T = len(cores)
-    sizes = (ctypes.c_longlong * T)(*[c.numel() for c in cores])
-    rc = _build.library().tt_adam_apply(
-        T, sizes, _ptrs(cores), _ptrs(ms), _ptrs(vs), _ptrs(grads), scal.data_ptr(),
-        b1, 1.0 - b1, b2, 1.0 - b2, eps, _stream())
-    _build.check(rc, "tt_adam_apply")
+    rc = fn(T, n, c, m, v, g, scal.data_ptr(), b1, 1.0 - b1, b2, 1.0 - b2, eps,
+            _build.current_stream(dev))
+    if rc:
+        _build.check(rc, "tt_adam_apply")
     _launches["tt_adam_apply"] += 1
 
 
@@ -281,16 +352,22 @@ def tt_sgd_plain(cores, grads, lr: float) -> None:
         c.sub_(lr * g)
 
 
-def tt_sgd_apply(cores, grads, lr: float) -> None:
-    """In-place SGD step on the TT cores with a fixed ``lr``."""
-    if _on_cpu(*cores, *grads):
-        return tt_sgd_plain(cores, grads, lr)
+def _sgd_args(cores, grads):
     _check_update("tt_sgd_apply", cores, grads)
-    T = len(cores)
-    sizes = (ctypes.c_longlong * T)(*[c.numel() for c in cores])
-    rc = _build.library().tt_sgd_apply(T, sizes, _ptrs(cores), _ptrs(grads), lr,
-                                       _stream())
-    _build.check(rc, "tt_sgd_apply")
+    return (_build.library().tt_sgd_apply, len(cores), _sizes(cores), _ptrs(cores),
+            _ptrs(grads), cores[0].get_device())
+
+
+def tt_sgd_apply(cores, grads, lr: float) -> None:
+    """In-place SGD step on the TT cores with a fixed ``lr``, bit for bit
+    ``tt_sgd_plain``."""
+    if not _on_card(cores, grads):
+        return tt_sgd_plain(cores, grads, lr)
+    fn, T, n, c, g, dev = _launch_args("tt_sgd_apply", cores, _sgd_args, cores, grads)
+    _step_ptrs(g, cores, grads, dev)
+    rc = fn(T, n, c, g, lr, _build.current_stream(dev))
+    if rc:
+        _build.check(rc, "tt_sgd_apply")
     _launches["tt_sgd_apply"] += 1
 
 
@@ -309,23 +386,29 @@ def tt_adagrad_plain(cores, accs, grads, lr: float, eps: float,
         c.sub_(lr * g / den)
 
 
+def _adagrad_args(cores, accs, grads, rowwise):
+    _check_update("tt_adagrad_apply", cores, grads, accs)
+    for k, c in enumerate(cores):
+        _check(accs[k], f"acc_{k}", torch.float32, c.shape[:1] if rowwise else c.shape)
+    rows = (ctypes.c_int * len(cores))(*[c.numel() // c.shape[0] for c in cores])
+    return (_build.library().tt_adagrad_apply, len(cores), _sizes(cores), rows,
+            _ptrs(cores), _ptrs(accs), _ptrs(grads), cores[0].get_device())
+
+
 def tt_adagrad_apply(cores, accs, grads, lr: float, eps: float,
                      rowwise: bool = False) -> None:
     """In-place adagrad (``rowwise``: one accumulator of shape (p_k,) per
     core) on the TT cores with a fixed ``lr``."""
-    if _on_cpu(*cores, *accs, *grads):
+    if not _on_card(cores, accs, grads):
         return tt_adagrad_plain(cores, accs, grads, lr, eps, rowwise)
-    _check_update("tt_adagrad_apply", cores, grads, accs)
-    for k, c in enumerate(cores):
-        _check(accs[k], f"acc_{k}", torch.float32, c.shape[:1] if rowwise else c.shape)
-    T = len(cores)
-    sizes = (ctypes.c_longlong * T)(*[c.numel() for c in cores])
-    rows = (ctypes.c_int * T)(*[c.numel() // c.shape[0] for c in cores])
-    rc = _build.library().tt_adagrad_apply(T, sizes, rows, _ptrs(cores), _ptrs(accs),
-                                           _ptrs(grads), lr, eps, int(rowwise),
-                                           _stream())
-    _build.check(rc, "tt_adagrad_apply")
-    _launches["tt_adagrad_apply[rowwise]" if rowwise else "tt_adagrad_apply"] += 1
+    name = "tt_adagrad_apply[rowwise]" if rowwise else "tt_adagrad_apply"
+    fn, T, n, rows, c, a, g, dev = _launch_args(name, (*cores, *accs), _adagrad_args, cores,
+                                                accs, grads, rowwise)
+    _step_ptrs(g, cores, grads, dev)
+    rc = fn(T, n, rows, c, a, g, lr, eps, int(rowwise), _build.current_stream(dev))
+    if rc:
+        _build.check(rc, "tt_adagrad_apply")
+    _launches[name] += 1
 
 
 # ------------------------------------------------------------ fused updates

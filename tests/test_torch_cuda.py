@@ -138,6 +138,140 @@ def test_new_kernels_match_plain(cuda, ndim):
         assert counts[name] == 1, counts
 
 
+ODD_SHAPES = {  # core sizes that are no multiple of 4: the kernel's scalar tail
+    2: TTShapes(35, 9, (5, 7), (3, 3), (3,)),
+    3: TTShapes(105, 27, (3, 5, 7), (3, 3, 3), (3, 5)),
+    4: TTShapes(225, 81, (3, 5, 3, 5), (3, 3, 3, 3), (3, 5, 3)),
+}
+
+
+def misaligned(t):
+    """A copy of t whose data starts 4 bytes past a 16-byte boundary."""
+    skip = 4 // t.element_size()
+    buf = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+    out = buf[skip:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("ndim", [2, 3, 4])
+def test_sgd_apply_bit_identical_to_plain(cuda, ndim):
+    """tt_sgd_apply repeats tt_sgd_plain's two roundings per value, so it is
+    bit-identical: on the multiple-of-4 cores (float4 body), on cores of
+    odd sizes (scalar tail), and on misaligned views of cores and
+    gradients (the scalar loop throughout)."""
+    rng = np.random.default_rng(70 + ndim)
+    tt_kernels.reset_launch_counts()
+    for shapes, view in ((case(ndim, cuda)[0], None), (ODD_SHAPES[ndim], None),
+                         (case(ndim, cuda)[0], misaligned), (ODD_SHAPES[ndim], misaligned)):
+        cores = [torch.tensor(c, device=cuda) for c in tt_init.init_tt_cores(shapes, "normal", 2)]
+        grads = [torch.tensor(rng.normal(size=c.shape).astype(np.float32), device=cuda)
+                 for c in cores]
+        got = [c.clone() for c in cores]
+        if view is not None:
+            got, grads = [view(c) for c in got], [view(g) for g in grads]
+        want = [c.clone() for c in cores]
+        tt_sgd_apply(got, grads, 0.037)
+        tt_kernels.tt_sgd_plain(want, grads, 0.037)
+        for a, b, c in zip(got, want, cores):
+            assert torch.equal(a, b) and not torch.equal(a, c)
+    assert tt_kernels.launch_counts()["tt_sgd_apply"] == 4
+
+
+def test_update_argument_cache_revalidates(cuda):
+    """The launch arguments are kept per argument set; another shape or
+    dtype at the same address, a non-contiguous view there, or a CPU
+    tensor among CUDA ones validates anew and raises as a first call."""
+    shapes, cores = case(3, cuda)
+    grads = [torch.randn(c.shape, device=cuda) for c in cores]
+    tt_kernels.reset_launch_counts()
+    for _ in range(3):  # the second and third calls reuse the first's arguments
+        want = [c.clone() for c in cores]
+        tt_kernels.tt_sgd_plain(want, grads, 0.01)
+        tt_sgd_apply(cores, grads, 0.01)
+        assert all(torch.equal(a, b) for a, b in zip(cores, want))
+    assert tt_kernels.launch_counts()["tt_sgd_apply"] == 3
+    c0 = cores[0]
+    with pytest.raises(ValueError):  # same address, another shape than its gradient
+        tt_sgd_apply([c0.view(-1), *cores[1:]], grads, 0.01)
+    with pytest.raises(TypeError):  # same address, another dtype
+        tt_sgd_apply([c0.view(torch.int32), *cores[1:]], grads, 0.01)
+    sq, one = torch.zeros(6, 6, device=cuda), torch.ones(6, 6, device=cuda)
+    tt_sgd_apply([sq], [one], 1.0)
+    assert torch.equal(sq, -one)
+    with pytest.raises(ValueError):  # same address and shape, not contiguous
+        tt_sgd_apply([sq.t()], [one], 1.0)
+    with pytest.raises(ValueError):  # a CPU gradient among CUDA tensors
+        tt_sgd_apply(cores, [grads[0].cpu(), *grads[1:]], 0.01)
+    with pytest.raises(ValueError):  # a CPU core first, CUDA tensors after
+        tt_sgd_apply([cores[0].cpu(), *cores[1:]], grads, 0.01)
+    scal = torch.tensor([0.01, 10.0, 1000.0], device=cuda)
+    ms, vs = [torch.zeros_like(c) for c in cores], [torch.zeros_like(c) for c in cores]
+    tt_adam_apply(cores, ms, vs, grads, scal, 0.9, 0.999, 1e-8)
+    with pytest.raises(ValueError):  # the moments' shapes are checked as before
+        tt_adam_apply(cores, [m.view(-1) for m in ms], vs, grads, scal, 0.9, 0.999, 1e-8)
+    with pytest.raises(ValueError):
+        tt_adam_apply(cores, ms, vs, grads, scal.cpu(), 0.9, 0.999, 1e-8)
+    assert tt_kernels.launch_counts()["tt_sgd_apply"] == 4
+    assert tt_kernels.launch_counts()["tt_adam_apply"] == 1
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adam", "adagrad", "rowwise_adagrad"])
+def test_update_argument_cache_takes_each_steps_gradients(cuda, opt):
+    """The kept argument set covers the cores and the optimizer state; the
+    gradients (and Adam's scal) are new tensors each step, at new addresses,
+    and each call uses its own: every step equals the plain version's, and
+    only the first call may validate an argument set (cores of an earlier
+    test at the same addresses and shapes may have left it kept)."""
+    shapes, cores = case(3, cuda)
+    plain = [c.clone() for c in cores]
+    state = {"adam": 2, "adagrad": 1, "rowwise_adagrad": 1}.get(opt, 0)
+    rowwise = opt == "rowwise_adagrad"
+    st = [[torch.zeros(c.shape[:1] if rowwise else c.shape, device=cuda) for c in cores]
+          for _ in range(state)]
+    st_plain = [[t.clone() for t in ts] for ts in st]
+    tt_kernels.reset_launch_counts()
+    keep = []
+    for step in range(4):
+        grads = [torch.randn(c.shape, device=cuda) for c in cores]
+        keep.append(grads)  # held, so each step's gradients lie at new addresses
+        if opt == "sgd":
+            tt_sgd_apply(cores, grads, 0.01)
+            tt_kernels.tt_sgd_plain(plain, grads, 0.01)
+        elif opt == "adam":
+            scal = torch.tensor([0.01, 1 / (1 - 0.9 ** (step + 1)),
+                                 1 / (1 - 0.999 ** (step + 1))], device=cuda)
+            tt_adam_apply(cores, *st, grads, scal, 0.9, 0.999, 1e-8)
+            tt_kernels.tt_adam_plain(plain, *st_plain, grads, scal, 0.9, 0.999, 1e-8)
+        else:
+            tt_adagrad_apply(cores, *st, grads, 0.01, 1e-8, rowwise)
+            tt_kernels.tt_adagrad_plain(plain, *st_plain, grads, 0.01, 1e-8, rowwise)
+        for a, b in zip(cores, plain):
+            if opt == "sgd":
+                assert torch.equal(a, b)
+            else:  # FMA contraction (Adam), the row sum's order (rowwise)
+                assert rel_err(a, b) <= 1e-5
+        if step == 0:
+            first = tt_kernels.arg_cache_misses()
+    assert len({g[0].data_ptr() for g in keep}) == 4
+    assert first <= 1 and tt_kernels.arg_cache_misses() == first
+
+
+def test_trainer_steps_reuse_the_update_arguments(cuda):
+    """On the trainer's --sparse steps (fused Adam; tt_grads allocates the
+    gradients, the trainer a new scal, every step) the update's argument
+    set is validated on the first step at most."""
+    tr = tiny_trainer(sparse=True)
+    tt_kernels.reset_launch_counts()
+    for step, b in zip(range(3), tr.loader):
+        tr.train_step(b.seeds, b.layers, b.labels)
+        if step == 0:
+            first = tt_kernels.arg_cache_misses()
+    assert tt_kernels.launch_counts()["tt_adam_apply"] == 3
+    assert first <= 1 and tt_kernels.arg_cache_misses() == first
+
+
 def test_sr_dither_varies_and_is_unbiased(cuda):
     """As tests/test_pallas.py's SR test: seeds give different dither, every
     SR output is within bf16 precision of the f32 rows, and the mean over
@@ -283,7 +417,7 @@ def test_spmm_tiled_kernel_matches_plain(cuda, n, e, NR, E_t, tpc, d):
         want = P.seg_mm_plain(hh, *args, *meta[:4], compute_dtype=cd)[:n]
         spmm_close(got, want, 1e-5)
     assert P.launch_counts() == {"spmm_tiled": 2, "spmm_tiled[bf16]": 1,
-                                 "spmm_tile_partials": 0}
+                                 "spmm_tile_partials": 0, "spmm_tile_partials[bf16]": 0}
     exact = np.zeros((n, d))
     np.add.at(exact, dst, h[src].astype(np.float64) * w[:, None])
     spmm_close(P.spmm_sum_tiled_uniform(ht, *args, *meta).double().cpu(),
@@ -307,6 +441,72 @@ def test_spmm_tile_partials_kernel_matches_plain(cuda):
     spmm_close(P.tile_mm_plain(ht, args[0], args[1], args[2], NR, E_t),
                P.tile_mm_plain(ht.cpu(), *[a.cpu() for a in args[:3]], NR, E_t).to(cuda), 1e-5)
     assert P.launch_counts()["spmm_tile_partials"] == 1
+
+
+def tile_sum_case(d, seed, n=1200, e=9000, NR=32, E_t=64):
+    """The flat tiling of dst-sorted weighted edges with a hub row of
+    in-degree 4 E_t + 5 (many tiles and warps meet on it), h of width d,
+    and 40 real slots spoilt: src -1 or past h, dstl NR or -2.  Returns h,
+    the tiling, the spoilt arrays (src, dstl, w, blk) for the kernel, and
+    the same slots with w = 0 for the plain version: what the kernel must
+    skip adds nothing."""
+    from falcon_ttdforgnns_torch.ops import spmm_tiled as P
+    rng = np.random.default_rng(seed)
+    hub = 4 * E_t + 5
+    src = rng.integers(0, n, e + hub).astype(np.int32)
+    dst = np.concatenate([rng.integers(0, n, e), np.full(hub, n // 2)]).astype(np.int32)
+    w = rng.normal(size=e + hub).astype(np.float32)
+    order = np.argsort(dst, kind="stable")
+    tiles = P.build_spmm_tiles(src[order], dst[order], n, edge_weight=w[order],
+                               block_rows=NR, tile_edges=E_t)
+    pick = rng.choice(np.nonzero(tiles.w != 0)[0], 40, replace=False)
+    bad_src, bad_dstl, ok_w = tiles.src.copy(), tiles.dstl.copy(), tiles.w.copy()
+    bad_src[pick[:10]], bad_src[pick[10:20]] = -1, n + 3
+    bad_dstl[pick[20:30]], bad_dstl[pick[30:]] = NR, -2
+    ok_w[pick] = 0
+    h = rng.normal(size=(n, d)).astype(np.float32)
+    return (h, tiles, (bad_src, bad_dstl, tiles.w, tiles.blk),
+            (tiles.src, tiles.dstl, ok_w, tiles.blk))
+
+
+@pytest.mark.parametrize("d", [37, 64, 100, 256])
+@pytest.mark.parametrize("variant", ["f32", "bf16_h", "bf16_compute", "misaligned_h"])
+def test_spmm_tile_sum_kernel_matches_plain(cuda, d, variant):
+    """B8's one kernel against tile_partials_plain (per-tile partials, then
+    their sum by block): 1e-5 of the largest value, each row's sum meeting
+    across warps in atomic order.  D=37 and a misaligned h take one value
+    per load, 64/100/256 16-byte loads (bf16 at 100: one value per load).
+    Rows at or past num_nodes are dropped; the call allocates the
+    (num_nodes, D) output and, for bf16 compute, h's bf16 copy: no
+    partials."""
+    from falcon_ttdforgnns_torch.ops import spmm_tiled as P
+    NR, E_t = 32, 64
+    h, tiles, bad, ok = tile_sum_case(d, d + len(variant))
+    num_nodes = h.shape[0] - 3  # the last rows' slots are dropped
+    ht = torch.tensor(h, device=cuda)
+    if variant == "bf16_h":
+        ht = ht.to(torch.bfloat16)
+    elif variant == "misaligned_h":
+        ht = misaligned(ht)
+    cd = torch.bfloat16 if variant == "bf16_compute" else torch.float32
+    bad, ok = ([torch.as_tensor(a, device=cuda) for a in arrs] for arrs in (bad, ok))
+    meta = (tiles.num_blocks, NR, E_t, num_nodes)
+    P.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    got = P.spmm_sum_tile_partials(ht, *bad, *meta, compute_dtype=cd)
+    rise = torch.cuda.memory_stats()["requested_bytes.all.peak"] - before
+    torch.cuda.synchronize()
+    counted = "spmm_tile_partials[bf16]" if cd == torch.bfloat16 else "spmm_tile_partials"
+    assert {k: v for k, v in P.launch_counts().items() if v} == {counted: 1}
+    assert got.shape == (num_nodes, d) and got.dtype == torch.float32
+    # bf16 compute of an f32 h also holds h's bf16 copy, which it gathers from
+    copy = ht.numel() * 2 if cd == torch.bfloat16 and ht.dtype == torch.float32 else 0
+    assert got.numel() * 4 + copy <= rise <= got.numel() * 4 + copy + 4096, rise
+    spmm_close(got, P.tile_partials_plain(ht, *ok, *meta, compute_dtype=cd), 1e-5)
+    hub = got[h.shape[0] // 2]
+    assert float(hub.abs().max()) > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

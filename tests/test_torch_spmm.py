@@ -252,6 +252,71 @@ def test_tile_partials_plain_matches_pallas_interpret(n, e):
     close(out.numpy(), flat.numpy(), 1e-5)
 
 
+def hub_mix_case():
+    """Random edges plus 700 into row 77: its block's run spans 11+ tiles
+    of 64 slots, so many tiles (and warps of the kernel) meet on one row."""
+    rng = np.random.default_rng(31)
+    n, e, hub = 300, 2000, 700
+    src = rng.integers(0, n, e + hub).astype(np.int32)
+    dst = np.concatenate([rng.integers(0, n, e), np.full(hub, 77)]).astype(np.int32)
+    order = np.argsort(dst, kind="stable")
+    w = rng.normal(size=e + hub).astype(np.float32)
+    return rng.normal(size=(n, 24)).astype(np.float32), src[order], dst[order], w[order]
+
+
+def pad_rows(tiles, n):
+    """Points some real slots of the last block at rows past n: the
+    reference sums them into pad rows of the block and slices them off."""
+    dstl = tiles.dstl.copy()
+    last = np.nonzero(tiles.blk == tiles.num_blocks - 1)[0]
+    slots = np.concatenate([np.arange(t * tiles.tile_edges, (t + 1) * tiles.tile_edges)
+                            for t in last])
+    real = slots[tiles.w[slots] != 0][::2]
+    first_pad = n - (tiles.num_blocks - 1) * tiles.block_rows
+    assert real.size and first_pad < tiles.block_rows
+    dstl[real] = first_pad + np.arange(real.size) % (tiles.block_rows - first_pad)
+    return dstl
+
+
+# name: (case, compute dtype, whether slots are moved to rows past n)
+PARTIAL_CASES = {
+    "d37": (lambda: make_case(500, 4000, seed=37, weights=True, d=37), "float32", False),
+    "hub_many_tiles": (hub_mix_case, "float32", False),
+    "pad_rows": (lambda: make_case(1000, 3000, seed=41, weights=True, d=8), "float32", True),
+    "d37_bf16_compute": (lambda: make_case(500, 4000, seed=38, weights=True, d=37),
+                         "bfloat16", False),
+}
+
+
+@pytest.mark.parametrize("name", list(PARTIAL_CASES))
+def test_tile_partials_cases_match_pallas_interpret(name):
+    """spmm_sum_tile_partials at the shapes the card's one-kernel design
+    must keep: D=37 (no 16-byte loads), a hub row across many tiles, slots
+    whose rows fall past num_nodes (dropped), and bf16 compute (h and w
+    rounded to bf16 on both sides, products exact, f32 sums): 1e-5."""
+    case, cdt, pads = PARTIAL_CASES[name]
+    h, src, dst, w = case()
+    n = h.shape[0]
+    tiles = P.build_spmm_tiles(src, dst, n, edge_weight=w, block_rows=32, tile_edges=64)
+    dstl = pad_rows(tiles, n) if pads else tiles.dstl
+    if name == "hub_many_tiles":
+        assert (tiles.blk == 77 // 32).sum() >= 11
+    ref = JP.spmm_sum_tile_partials(
+        jnp.asarray(h), jnp.asarray(tiles.src), jnp.asarray(dstl), jnp.asarray(tiles.w),
+        jnp.asarray(tiles.blk), tiles.num_blocks, 32, 64, n,
+        compute_dtype=getattr(jnp, cdt), interpret=True)
+    out = P.spmm_sum_tile_partials(torch.tensor(h), t(tiles.src), t(dstl), t(tiles.w),
+                                   t(tiles.blk), tiles.num_blocks, 32, 64, n,
+                                   compute_dtype=getattr(torch, cdt))
+    assert out.dtype == torch.float32 and out.shape == (n, h.shape[1])
+    close(out.numpy(), ref, 1e-5)
+    if pads:  # the moved slots are gone from every row below n
+        kept = P.spmm_sum_tile_partials(torch.tensor(h), t(tiles.src), t(tiles.dstl),
+                                        t(np.where(tiles.dstl != dstl, 0, tiles.w)),
+                                        t(tiles.blk), tiles.num_blocks, 32, 64, n)
+        close(out.numpy(), kept.numpy(), 1e-6)
+
+
 def test_tiled_ignores_out_of_block_dstl_as_the_one_hot_does():
     h, src, dst, _ = make_case(200, 1500, seed=2)
     tiles = P.build_spmm_tiles(src, dst, 200, block_rows=32, tile_edges=64)

@@ -204,6 +204,35 @@ def test_fused_sgd_two_steps_match_pallas(ndim):
                                        + 4 * np.finfo(np.float32).eps * np.abs(c0).max())
 
 
+ODD_SHAPES = {  # core sizes that are no multiple of 4 (the kernel's scalar tail)
+    2: TTShapes(35, 9, (5, 7), (3, 3), (3,)),                       # 45, 63 values
+    4: TTShapes(225, 81, (3, 5, 3, 5), (3, 3, 3, 3), (3, 5, 3)),    # 27, 225, 135, 45
+}
+
+
+@pytest.mark.parametrize("ndim", sorted(ODD_SHAPES))
+def test_fused_sgd_odd_core_sizes_match_pallas(ndim):
+    """Fused SGD on cores whose sizes are no multiple of 4 against
+    tt_fused_sgd_pallas in interpret mode, with the tolerances of the
+    two-step test above; ids repeat, so duplicate ids accumulate."""
+    shapes = ODD_SHAPES[ndim]
+    cores = tt_init.init_tt_cores(shapes, "normal", 3)
+    assert all(c.size % 4 for c in cores)
+    rng = np.random.default_rng(120 + ndim)
+    ids = rng.integers(0, shapes.num_embeddings, 300).astype(np.int32)
+    g = rng.normal(size=(300, shapes.embedding_dim)).astype(np.float32)
+    lr = 0.05
+    jc = tt_fused_sgd_pallas(shapes, tuple(jnp.asarray(c) for c in cores), jnp.asarray(ids),
+                             jnp.asarray(g), lr, block=128, compute_dtype=jnp.float32)
+    tc = [torch.tensor(c) for c in cores]
+    tt_fused_sgd(shapes, tc, torch.tensor(ids), torch.tensor(g), lr)
+    for a, b, c0 in zip(tc, jc, cores):
+        scaled_close(a.numpy(), b, 1e-5)
+        change, want = a.numpy() - c0, np.asarray(b) - c0
+        np.testing.assert_allclose(change, want, rtol=0, atol=1e-4 * np.abs(want).max()
+                                   + 4 * np.finfo(np.float32).eps * np.abs(c0).max())
+
+
 # -------------------------------------------------------- B6 fused adagrad
 @pytest.mark.parametrize("ndim", [2, 3, 4])
 @pytest.mark.parametrize("rowwise", [False, True])

@@ -15,7 +15,9 @@
    exists, the PyTorch library call for the same function; for the
    launch-sized updates (Adam, SGD, adagrad) also the device time per call
    from torch.profiler beside the loop time, for kernel and library call;
-   times the host's two ways to read the current stream;
+   for tt_grads the sort of its ids apart, the distinct ids and prefix
+   runs that set its bound and the pieces and segments of its walk; times
+   the host's two ways to read the current stream;
 4. checks the train step on the card against the same step on the CPU
    (plain versions) on a tiny graph, for f32 --sparse, f32 without it,
    --bf16 --sparse, --bf16 --bf16-sr --sparse and each --tt-optimizer, and
@@ -26,10 +28,12 @@
    after, then evaluate(); the blocked losses are held to the xla ones;
 6. trains the full-width SAGE 3x256 on the full-size hard-ogbn-products
    graph: 5 steps of the main path, --bf16 --sparse (bf16 kernel I/O,
-   fused Adam), with the launch counters zeroed before and read after (and
-   the update's argument-cache misses: at most the first step's); a
-   profiled window of 3 steps (device time by kernel); 5 steps sampled on
-   the host as train_epoch does; then, each with the counters zeroed
+   fused Adam), each step's tt_grads walk counts and bound, with the launch
+   counters zeroed before and read after (and the update's argument-cache
+   misses: at most the first step's); a profiled window of 3 steps (device
+   time by kernel, tt_grads with its sort); 5 steps sampled on the host as
+   train_epoch does; tt_grads on those 5 steps' ids at 32, 64 and 128
+   sorted positions a warp; then, each with the counters zeroed
    before and read after, 2 steps each of --bf16 --bf16-sr --sparse and
    --sparse --tt-optimizer sgd|adagrad|rowwise_adagrad, 2 f32 --sparse
    steps, 2 f32 steps without --sparse (TTLookup's backward kernel), and
@@ -70,9 +74,9 @@ LR = 3e-3
 # tensor judged on its own scale (each core's gradient; each core's m, v
 # or accumulator and change of the core value):
 #   tt_fwd: 16-term f32 dots, FMA vs the plain version's bmm order;
-#   tt_grads: atomics reorder sums of up to ~2.3e5 terms (the hottest zipf
-#     id is 25% of the batch), sqrt(n) * 2^-24 ~ 3e-5; the same with a
-#     bf16 d_out, which both sides upcast exactly;
+#   tt_grads: the grouped walk and its atomics reorder sums of up to ~2.3e5
+#     terms (the hottest zipf id is 25% of the batch), sqrt(n) * 2^-24 ~
+#     3e-5; the same with a bf16 d_out, which both sides upcast exactly;
 #   tt_adam_apply m, v: the same elementwise formula, FMA contraction only;
 #   tt_adam_apply core change (new core - old core): when the two updates
 #     differ by an ulp, the new cores may round apart by one ulp of the core
@@ -87,10 +91,9 @@ TOL = {"tt_fwd": 1e-5, "tt_grads": 1e-4, "tt_adam_apply": 1e-5,
        "tt_adam_apply core change": 1e-4, "tt_sgd_apply": 0.0,
        "tt_adagrad_apply": 1e-6, "tt_adagrad_apply[rowwise]": 1e-5,
        # the SpMMs: each row's sum (~50 terms at products, in-degree up to a
-       # few hundred) in another order (FMA, per-warp runs, shared-memory
-       # atomics for B7, global vector atomics for B8) than the plain
-       # version's index_add_; with bf16 compute both sides round h and w
-       # alike, so only the order differs
+       # few hundred) in another order (FMA, per-warp runs, global vector
+       # atomics) than the plain version's index_add_; with bf16 compute both
+       # sides round h and w alike, so only the order differs
        "spmm_tiled": 1e-5, "spmm_tiled[bf16]": 1e-5, "spmm_tile_partials": 1e-5,
        "spmm_tile_partials[bf16]": 1e-5}
 BF16_MIN_EQUAL = 0.999
@@ -141,8 +144,10 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def device_ops(fn, reps: int = 1) -> tuple:
     """({name: (calls, device us)} of every kernel and memset that `reps`
-    calls of fn() ran on the card (torch.profiler), and the wall time of
-    those calls in us."""
+    calls of fn() ran on the card (torch.profiler), the wall time of those
+    calls in us, and {host op: device us of the kernels it launched} (the
+    kernels of a library call such as aten::sort, whose names are not the
+    port's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -152,9 +157,12 @@ def device_ops(fn, reps: int = 1) -> tuple:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    on_card = [str(getattr(e, "device_type", "")).endswith("CUDA") for e in events]
     return ({e.key: (e.count, getattr(e, "self_device_time_total", 0))
-             for e in prof.key_averages()
-             if str(getattr(e, "device_type", "")).endswith("CUDA")}, wall_us)
+             for e, card in zip(events, on_card) if card}, wall_us,
+            {e.key: getattr(e, "device_time_total", 0)
+             for e, card in zip(events, on_card) if not card})
 
 
 def complete_profile(fn, complete, what: str, reps: int = 1) -> tuple:
@@ -166,12 +174,12 @@ def complete_profile(fn, complete, what: str, reps: int = 1) -> tuple:
     can only hide work, so `complete` may also raise at once on work that
     should not be there."""
     for attempt in range(3):
-        ops, wall_us = device_ops(fn, reps)
+        ops, wall_us, under = device_ops(fn, reps)
         if complete(ops):
-            return ops, wall_us
+            return ops, wall_us, under
         log(f"  (torch.profiler missed device records of {what}; attempt {attempt + 1} of 3)")
     log(f"  torch.profiler missed device records of {what} three times: not measured")
-    return None, None
+    return None, None, None
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -181,8 +189,8 @@ def device_ms(fn, reps: int = 20) -> float:
     call launches at least one kernel; a profile with fewer is taken again,
     and None returned after three (complete_profile)."""
     fn()
-    ops, _ = complete_profile(fn, lambda ops: sum(c for c, _ in ops.values()) >= reps,
-                              f"{reps} timed calls", reps)
+    ops, _, _ = complete_profile(fn, lambda ops: sum(c for c, _ in ops.values()) >= reps,
+                                 f"{reps} timed calls", reps)
     return None if ops is None else sum(t for _, t in ops.values()) / reps / 1e3
 
 
@@ -255,6 +263,39 @@ def chain_macs(shapes) -> tuple:
     fwd = sum(level[1:])
     bwd = sum(level[1:T - 1]) + 2 * sum(level[1:])
     return fwd, bwd
+
+
+def grouped_macs(shapes, per_id: int, per_prefix: int) -> int:
+    """The multiply-adds of the grouped backward (the note in
+    csrc/tt_kernels.cu): per id 2 L_{T-1} r_{T-1} q_{T-1} (the last core's
+    gradient row and the chain gradient), per prefix
+    3 sum_{k=1}^{T-2} L_k r_k q_k r_{k+1} (P_{T-2} recomputed, then the
+    backward through cores T-2..1).  With (distinct ids, prefix runs) the
+    work the function needs; with (pieces, segments) the work tt_grads'
+    walk does, the chunk starts' splits included.  Exact at 3 cores; at 4
+    an upper bound (a prefix that keeps d_1 keeps P_1)."""
+    fr, q, T = shapes.full_ranks, shapes.q_shapes, shapes.ndim
+    L = [int(np.prod(q[:k])) for k in range(T + 1)]
+    seg = sum(L[k] * fr[k] * q[k] * fr[k + 1] for k in range(1, T - 1))
+    return per_id * 2 * L[T - 1] * fr[T - 1] * q[T - 1] + per_prefix * 3 * seg
+
+
+def grads_bound(shapes, counts: dict, d_size: int) -> tuple:
+    """tt_grads' bound for these ids: the ids (4 B each) and d_out read
+    once, the cores read and the gradient written once; the multiply-adds
+    that the distinct ids and prefix runs need (grouped_macs)."""
+    B, D = counts["ids"], shapes.embedding_dim
+    return bound_ms(4 * B + d_size * B * D + 8 * shapes.num_tt_params,
+                    2 * grouped_macs(shapes, counts["distinct"], counts["prefix_runs"]))
+
+
+def walk_line(label: str, shapes, counts: dict) -> str:
+    need = grouped_macs(shapes, counts["distinct"], counts["prefix_runs"])
+    walk = grouped_macs(shapes, counts["pieces"], counts["segments"])
+    return (f"{label}: {counts['ids']} ids, {counts['distinct']} distinct, "
+            f"{counts['prefix_runs']} prefix runs, {need / 1e9:.4f} GMAC needed; tt_grads' "
+            f"walk: {counts['pieces']} pieces, {counts['segments']} segments, "
+            f"{walk / 1e9:.4f} GMAC")
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple:
@@ -363,14 +404,22 @@ def kernel_checks(K, shapes, cores, ids, d_out, full: bool):
     timed("tt_fwd_sr", lambda: K.tt_fwd_sr(shapes, cores, ids, seed),
           lambda: K.tt_fwd_sr_plain(shapes, cores, ids, seed), None,
           4 * (B + n_tt + 1) + 2 * B * D, 2 * macs_f * B)
-    # the chain's multiply-adds only; the 1,424 scatter adds per id are
-    # atomics that run in L2, not on the FMA pipes
-    timed("tt_grads", lambda: K.tt_grads(shapes, cores, ids, d_out),
-          lambda: K.tt_grads_plain(shapes, cores, ids, d_out), None,
-          4 * (B + B * D + 2 * n_tt), 2 * macs_b * B)
-    timed("tt_grads[bf16]", lambda: K.tt_grads(shapes, cores, ids, d_bf16),
-          lambda: K.tt_grads_plain(shapes, cores, ids, d_bf16), None,
-          4 * (B + 2 * n_tt) + 2 * B * D, 2 * macs_b * B)
+    # the bound from the multiply-adds that these ids' distinct ids and
+    # prefix runs need (the atomics run in L2, not on the FMA pipes); the
+    # log also gives the bound of the reference's per-id chain (22,400
+    # multiply-adds an id at the products shapes), work the kernel no
+    # longer does
+    counts = K.grouped_counts(shapes, ids)
+    log("  " + walk_line("the draw", shapes, counts))
+    sort_ms = cuda_ms(lambda: K.grouped_order(ids), 10)
+    chain_bound = {}
+    for name, d, size in (("tt_grads", d_out, 4), ("tt_grads[bf16]", d_bf16, 2)):
+        nbytes = 4 * B + size * B * D + 8 * n_tt
+        timed(name, lambda d=d: K.tt_grads(shapes, cores, ids, d),
+              lambda d=d: K.tt_grads_plain(shapes, cores, ids, d), None, nbytes,
+              2 * grouped_macs(shapes, counts["distinct"], counts["prefix_runs"]))
+        res[name]["sort_ms"] = sort_ms
+        chain_bound[name] = bound_ms(nbytes, 2 * macs_b * B)[0]
 
     def params_with(gs):
         ps = [torch.nn.Parameter(c.clone()) for c in cores]
@@ -409,6 +458,9 @@ def kernel_checks(K, shapes, cores, ids, d_out, full: bool):
             lib_dev = ms4(r["library_device_ms"],
                           "none" if r["library_ms"] is None else "not measured")
             dev = f"; on the device {ms4(r['device_ms'], 'not measured')}, library {lib_dev}"
+        if name in chain_bound:
+            dev += (f"; of it the sort {r['sort_ms']:.4f} ms; the per-id chain's bound "
+                    f"{chain_bound[name]:.4f} ms")
         log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{lib} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}){dev}")
     return res
@@ -582,6 +634,30 @@ def checked_evaluate(trainer, label, must_launch=("tt_fwd",)):
     return accs, counts
 
 
+def chunk_sweep(K, shapes, id_batches, dev) -> None:
+    """tt_grads with a bf16 d_out, as on the main path, on the main path's
+    own ids at 32, 64 and 128 sorted positions a warp (GRADS_CHUNK is
+    chosen from these): loop ms per call of each batch, the chunks taking
+    turns within a batch, and each chunk's pieces and segments."""
+    import torch
+    from falcon_ttdforgnns_torch.ops import tt_init
+    cores = [torch.tensor(c, device=dev)
+             for c in tt_init.init_tt_cores(shapes, "approx-normal", 0)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    chunks = (32, 64, 128)
+    times = {c: [] for c in chunks}
+    for ids in id_batches:
+        d = torch.randn((ids.shape[0], shapes.embedding_dim), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        for c in chunks:
+            times[c].append(cuda_ms(lambda: K.tt_grads(shapes, cores, ids, d, chunk=c), 10))
+    for c in chunks:
+        walk = K.grouped_counts(shapes, id_batches[0], c)
+        log(f"  tt_grads[bf16] at chunk {c}{' (GRADS_CHUNK)' if c == K.GRADS_CHUNK else ''}: "
+            f"{', '.join(f'{t:.4f}' for t in times[c])} ms on the {len(id_batches)} steps' "
+            f"ids (step 0: {walk['pieces']} pieces, {walk['segments']} segments)")
+
+
 def profile_steps(trainer, batches) -> None:
     """Where a --sparse step's device time goes: torch.profiler over a few
     steps, kernels ranked by device time, and the device's busy share of
@@ -601,7 +677,7 @@ def profile_steps(trainer, batches) -> None:
             log(f"  TT kernel records {tt} for {n} steps")
         return sorted(tt.values()) == [n, n]
 
-    ops, wall_us = complete_profile(steps, complete, f"{n} main-path steps")
+    ops, wall_us, under = complete_profile(steps, complete, f"{n} main-path steps")
     if ops is None:
         return
     rows = [(us, key, count) for key, (count, us) in ops.items()]
@@ -609,6 +685,12 @@ def profile_steps(trainer, batches) -> None:
     log(f"  profiled {n} steps: {wall_us / n / 1e3:.1f} ms per step (profiler on), "
         f"device busy {busy_us / n / 1e3:.1f} ms per step = "
         f"{busy_us / wall_us:.1%} of wall")
+    # tt_grads' time on the path is its kernel and the sort of its ids (the
+    # step sorts nothing else on the card)
+    kernel_us = sum(us for key, (_, us) in ops.items() if "tt_grads_kernel" in key)
+    sort_us = under.get("aten::sort", 0)
+    log(f"  tt_grads with its sort: {(kernel_us + sort_us) / n / 1e3:.3f} ms per step "
+        f"(kernel {kernel_us / n / 1e3:.3f}, aten::sort's kernels {sort_us / n / 1e3:.3f})")
     for us, key, count in sorted(rows, reverse=True)[:10]:
         log(f"    {us / n / 1e3:8.3f} ms/step {us / max(busy_us, 1e-9):6.1%}  "
             f"x{count // n:<3d} {key[:90]}")
@@ -970,7 +1052,7 @@ def main() -> int:
             elif "spill" in line and kernel:
                 spill = line.strip()
             elif "registers" in line and kernel:
-                short = re.search(r"(?:tt_(?!kernels_cu)|seg_mm|tile_sum|window_gather)\w+",
+                short = re.search(r"(?:tt_(?!kernels_cu)|tile_sum|window_gather)\w+",
                                   kernel)
                 log(f"  ptxas {short.group(0)[:44] if short else kernel}: "
                     f"{line.split(':', 1)[1].strip()}; {spill}")
@@ -1009,6 +1091,12 @@ def main() -> int:
 
     log(f"main path: {STEPS_MAIN} --bf16 --sparse steps (bf16 kernel I/O, fused Adam), "
         f"SAGE {cfg.num_layers}x{cfg.hidden_dim}")
+    main_ids = [torch.as_tensor(b.all_nodes.astype(np.int32), device=dev) for b in main_b]
+    for i, ids in enumerate(main_ids):
+        walk = K.grouped_counts(trainer.shapes, ids)
+        bound, by = grads_bound(trainer.shapes, walk, 2)
+        log(f"  {walk_line(f'step {i}', trainer.shapes, walk)}; tt_grads' bound (bf16 "
+            f"d_out) {bound:.4f} ms by {by}")
     counts["main"] = counted_steps(trainer, main_b, "bf16 sparse",
                                    ("tt_fwd[bf16]", "tt_grads[bf16]", "tt_adam_apply"))
     profile_steps(trainer, main_b[:3])
@@ -1022,6 +1110,8 @@ def main() -> int:
     per_step = (time.perf_counter() - t0) / STEPS_MAIN
     log(f"  sample + step, as in train_epoch: {per_step * 1e3:.1f} ms per step, "
         f"{cfg.batch_size / per_step:.0f} seeds/s")
+    chunk_sweep(K, trainer.shapes, main_ids, dev)
+    del main_ids
     log("evaluate() under bf16: full-graph propagation over every node and edge")
     checked_evaluate(trainer, "bf16 evaluate")
     del trainer
@@ -1081,7 +1171,8 @@ def main() -> int:
                 "max_abs_err": res[n]["max_abs_err"], "ms": res[n]["ms"],
                 "plain_ms": res[n]["plain_ms"], "bound_ms": res[n]["bound_ms"],
                 "bound_by": res[n]["bound_by"], "library_ms": res[n]["library_ms"],
-                **{k: res[n][k] for k in ("device_ms", "library_device_ms") if k in res[n]}}
+                **{k: res[n][k] for k in ("device_ms", "library_device_ms", "sort_ms")
+                   if k in res[n]}}
                for m in kernel_modules() for n in m.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -35,25 +35,48 @@
 //   against 3.36 ms, scripts/torch_kernel_times.py).  Measured: PERF.md.
 //
 // tt_grads  replaces tt_pallas.py:_bwd_kernel.
-//   One warp per id: recompute the left partials P_0..P_{T-2} into shared
-//   memory, copy the d_out row in (f32, or bf16 upcast as it is staged),
-//   then walk the cores from last to first:
-//     dC_k[r, c]     = sum_l P_{k-1}[l, r] * G_k[l, c]     (scattered)
-//     G_{k-1}[l, r]  = sum_c C_k[r, c]     * G_k[l, c]     (k > 0)
-//   with c = (u, s) flattened.  The core row C_k is staged in shared memory
-//   with an odd row pitch so lanes that differ in r hit different banks.
-//   Scatter: 937,984 ids add ~1.3 billion values into 198,160 addresses,
-//   ~6,700 adds per address, with atomicAdd (performed at L2) straight into
-//   the zeroed (n_total,) gradient.  The gradient (793 KB) stays in L2, so
-//   the read-modify-writes never reach HBM.  The summation order varies
-//   from run to run: each core's gradient agrees with the plain version to
-//   within 1e-4 of that core's largest magnitude (a reordered f32 sum of up
-//   to ~2.3e5 terms; the check is in chip_smoke.py).  Bound: ~22,400 FMAs
-//   per id (42 GFLOP per step, 0.63 ms at the f32 peak) before the d_out
-//   read (375 MB f32, 188 MB bf16).  Measured: PERF.md.  Eight private
-//   partial copies of the gradient summed by a second pass timed the same
-//   as one (PERF.md): the per-id chain work, not atomic contention, sets
-//   the time for now.
+//   The backward is linear in d_out, and ids that share a prefix (digits
+//   d_0..d_{T-2}, i.e. id // p_{T-1}) share the left partials P_0..P_{T-2}
+//   and the core rows C_0..C_{T-2}.  So the ids are walked in sorted order
+//   (the wrapper's torch.sort gives the sorted ids and the permutation into
+//   d_out) and most of the chain is paid once per run of one prefix:
+//     per distinct id, with G^ the sum of its d_out rows (f32, a bf16 d_out
+//     upcast exactly) as (L_{T-1}, q_{T-1}):
+//       dC_{T-1}[d_{T-1}][r, u] += sum_l P_{T-2}[l, r] G^[l, u]   (atomics)
+//       SG[l, r]                += sum_u G^[l, u] C_{T-1}[d_{T-1}][r, u]
+//     per segment (one prefix within one chunk), with G_{T-2} = SG:
+//       dC_k[d_k][r, m] += sum_l P_{k-1}[l, r] G_k[l, m]   (atomics, k >= 1)
+//       G_{k-1}[l, r]    = sum_m G_k[l, m] C_k[d_k][r, m]
+//       dC_0[d_0]       += G_0                              (atomics)
+//     then P_{T-2} of the next prefix, recomputed from its first changed
+//     digit: P_k[l, m] = sum_r P_{k-1}[l, r] C_k[d_k][r, m].
+//   This is the reference's sum in another order (exact in real arithmetic
+//   for T = 2, 3, 4).  Work split: one warp takes a chunk of `chunk`
+//   consecutive sorted positions (64 from the wrapper: 938K ids make 14,656
+//   chunks, 3.5 per warp of a full card, and add at most one segment per
+//   chunk to the <= prod(p_0..p_{T-2}) prefix runs), on a 1-D grid of one
+//   wave, so the work per warp does not depend on how the ids are
+//   distributed: the zipf draw's hottest id, a quarter of the batch, is
+//   split over thousands of warps.  No host sync, no run table.  Each
+//   product above is one warp_mm: a lane owns RB x CB outputs, so each value
+//   it loads feeds RB or CB FMAs, and steps its output block without an
+//   integer division.  Per warp in shared memory: P_0..P_{T-2}, the flush's
+//   chain gradients and SG (2 * P_total floats), G^ (D) and 32 staged
+//   (id, position) pairs: 4.5 KB at the products shapes (10.3 KB per id for
+//   the per-id chain this replaces), so four 8-warp CTAs, 32 warps, fit an
+//   SM at <= 64 registers a thread (__launch_bounds__).  At the products
+//   shapes (p=125,140,140, q=5,5,4, ranks 16,16) a distinct id costs 3,200
+//   FMAs and 64 atomics, a segment 19,200 FMAs (6,400 for P_1, 12,800 for
+//   cores 1 and 0) and 1,360 atomics, against 22,400 FMAs and 1,424 atomics
+//   for every id before.  Bound on H100: the larger of the bytes (d_out
+//   once, 188 MB in bf16 for 937,984 ids, plus the ids, the int64
+//   permutation, the cores and the gradient: ~0.06 ms at 3.35 TB/s) and
+//   these FMAs for the input's counts of distinct ids and segments at the
+//   f32 peak (chip_smoke.py computes and prints both).  The atomics run at
+//   L2 into the zeroed (n_total,) gradient (793 KB, L2-resident), so the
+//   summation order varies from run to run: each core's gradient agrees
+//   with the plain version to within 1e-4 of that core's largest magnitude
+//   (chip_smoke.py).  Measured: PERF.md.
 //
 // The fused core updates.  A cross-block reduction needs a second pass on
 // Hopper, so each fused update of the TPU (one pallas_call that sums the
@@ -79,8 +102,9 @@
 //     (ops/tt_kernels.py, _launch_args), as for Adam and adagrad; the
 //     launcher picks each core's pointers into separate kernel parameters.
 //     Folding -lr * g into the cores inside tt_grads is
-//     not done: ~6,700 atomic adds per address would round every add at
-//     the core's ulp, far off the plain version.
+//     not done: the many atomic adds per address (one per piece or
+//     segment that reaches it) would round every add at the core's ulp,
+//     far off the plain version.
 //   tt_adagrad_apply  with tt_grads replaces tt_pallas.py:_adagrad_kernel.
 //     Per element: a += g^2, core -= lr * g / (sqrt(a) + eps), one thread
 //     per value.  Rowwise: one accumulator per p-row of each core; one warp
@@ -111,8 +135,7 @@ struct TTMeta {
   int L[kMaxCores + 1];       // L[k] = prod(q_0 .. q_{k-1}), L[0] = 1
   int F[kMaxCores];           // core row size r_k * q_k * r_{k+1}
   int S;                      // max_k L[k+1] * r[k+1]: largest chain state
-  int P_total;                // sum_{k<T-1} L[k+1] * r[k+1]: saved left partials
-  int C_stage;                // max_{k>=1} r[k] * pitch(k): staged core row
+  int P_total;                // sum_{k<T-1} L[k+1] * r[k+1]: the left partials
   long long off[kMaxCores + 1];  // offsets of each core in the flat gradient
 };
 
@@ -136,10 +159,10 @@ struct OptPtrs {
 };
 
 constexpr int kSgdThreads = 256;
+constexpr int kGradsBlocksPerSM = 4;  // tt_grads: 32 warps an SM, <= 64 registers a thread
+constexpr int kStage = 32;            // tt_grads: sorted positions a warp stages at a time
 
 enum class Store { kF32, kBF16, kBF16SR };
-
-__host__ __device__ inline int row_pitch(int mm) { return mm | 1; }
 
 bool make_meta(const int* spec, TTMeta* m) {
   // spec = [T, p0..p3, q0..q3, r0..r4, stride0..stride3]
@@ -154,7 +177,6 @@ bool make_meta(const int* spec, TTMeta* m) {
   m->L[0] = 1;
   m->S = 0;
   m->P_total = 0;
-  m->C_stage = 0;
   m->off[0] = 0;
   for (int k = 0; k < m->T; ++k) {
     if (m->p[k] <= 0 || m->q[k] <= 0 || m->r[k] <= 0 || m->r[k + 1] <= 0 ||
@@ -165,10 +187,6 @@ bool make_meta(const int* spec, TTMeta* m) {
     const int level = m->L[k + 1] * m->r[k + 1];
     if (level > m->S) m->S = level;
     if (k < m->T - 1) m->P_total += level;
-    if (k >= 1) {
-      const int staged = m->r[k] * row_pitch(m->q[k] * m->r[k + 1]);
-      if (staged > m->C_stage) m->C_stage = staged;
-    }
     m->off[k + 1] = m->off[k] + (long long)m->p[k] * m->F[k];
   }
   m->D = m->L[m->T];
@@ -270,107 +288,225 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // -------------------------------------------------------------- tt_grads
+// One warp's share of an R x C product out(i, j) = sum_k A(i, k) B(k, j),
+// A(i, k) = A[i * ai + k * ak] in shared memory, B(k, j) = B[k * bk + j *
+// bj] in shared memory or, with kGlobalB, in global memory (a core row,
+// read through the read-only cache).  A lane owns blocks of RB rows x CB
+// columns: per k it loads RB values of A and CB of B for RB * CB FMAs.
+// Blocks go to the lanes in order, each lane's next block found by adding
+// the fixed step (32 blocks) without a division; rows and columns past the
+// edge load a clamped address and emit nothing.  emit(i, j, value) takes
+// every result.
+template <int RB, int CB, bool kGlobalB, class Emit>
+__device__ __forceinline__ void warp_mm(int R, int C, int K, const float* A, int ai, int ak,
+                                        const float* B, int bk, int bj, Emit emit) {
+  const int lane = threadIdx.x & 31;
+  const int ncb = (C + CB - 1) / CB;
+  const int items = ((R + RB - 1) / RB) * ncb;
+  const int di = 32 / ncb, dj = 32 % ncb;
+  int ib = lane / ncb, jb = lane % ncb;
+  for (int it = lane; it < items; it += 32) {
+    const int i0 = ib * RB, j0 = jb * CB;
+    const float* pa[RB];
+    const float* pb[CB];
+#pragma unroll
+    for (int t = 0; t < RB; ++t) pa[t] = A + min(i0 + t, R - 1) * ai;
+#pragma unroll
+    for (int c = 0; c < CB; ++c) pb[c] = B + min(j0 + c, C - 1) * bj;
+    float acc[RB][CB];
+#pragma unroll
+    for (int t = 0; t < RB; ++t)
+#pragma unroll
+      for (int c = 0; c < CB; ++c) acc[t][c] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      float a[RB], b[CB];
+#pragma unroll
+      for (int t = 0; t < RB; ++t) {
+        a[t] = *pa[t];
+        pa[t] += ak;
+      }
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        if constexpr (kGlobalB) b[c] = __ldg(pb[c]);
+        else b[c] = *pb[c];
+        pb[c] += bk;
+      }
+#pragma unroll
+      for (int t = 0; t < RB; ++t)
+#pragma unroll
+        for (int c = 0; c < CB; ++c) acc[t][c] = fmaf(a[t], b[c], acc[t][c]);
+    }
+#pragma unroll
+    for (int t = 0; t < RB; ++t)
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        if (i0 + t < R && j0 + c < C) emit(i0 + t, j0 + c, acc[t][c]);
+    jb += dj;
+    ib += di;
+    if (jb >= ncb) {
+      jb -= ncb;
+      ++ib;
+    }
+  }
+}
+
+// The per-warp state of tt_grads_kernel in shared memory.
+struct GradsWarp {
+  float* P;    // left partials P_0 .. P_{T-2}, P_k (L_{k+1}, r_{k+1}) at poff[k]
+  float* Gb;   // a flush's chain gradients G_0 .. G_{T-3}, G_k where P_k is
+  float* SG;   // sum over the segment's ids of G_{T-2} (L_{T-1}, r_{T-1})
+  float* Gh;   // G^: the current id's summed d_out row (L_{T-1}, q_{T-1})
+  int poff[kMaxCores];
+};
+
+// P_k for k = f .. T-2 at the prefix digits d (P_0 is the core-0 row).
+template <int T>
+__device__ __forceinline__ void grads_prefix(int f, const int* d, const TTMeta& m,
+                                             const CorePtrs& cores, GradsWarp& w) {
+  const int lane = threadIdx.x & 31;
+  if (f == 0) {
+    const float* c0 = cores.c[0] + (long long)d[0] * m.F[0];
+    for (int i = lane; i < m.F[0]; i += 32) w.P[i] = __ldg(c0 + i);
+    __syncwarp();
+  }
+#pragma unroll
+  for (int k = 1; k < T - 1; ++k) {
+    if (k < f) continue;
+    const int rk = m.r[k], Mk = m.q[k] * m.r[k + 1];
+    float* out = w.P + w.poff[k];
+    warp_mm<2, 2, true>(m.L[k], Mk, rk, w.P + w.poff[k - 1], rk, 1,
+                        cores.c[k] + (long long)d[k] * m.F[k], Mk, 1,
+                        [&](int i, int j, float v) { out[i * Mk + j] = v; });
+    __syncwarp();
+  }
+}
+
+// The current id's share: the last core's gradient row, and its G_{T-2}
+// added into SG.
+template <int T>
+__device__ __forceinline__ void grads_id(const int* d, const TTMeta& m, const CorePtrs& cores,
+                                         GradsWarp& w, float* __restrict__ grad) {
+  constexpr int K = T - 1;
+  const int q = m.q[K], rl = m.r[K];
+  const long long row = (long long)d[K] * m.F[K];
+  float* g = grad + m.off[K] + row;
+  float* SG = w.SG;
+  // dC_{T-1}[d][r, u] += sum_l P_{T-2}[l, r] G^[l, u]
+  warp_mm<2, 1, false>(rl, q, m.L[K], w.P + w.poff[T - 2], 1, rl, w.Gh, q, 1,
+                       [&](int i, int j, float v) { atomicAdd(g + i * q + j, v); });
+  // SG[l, r] += sum_u G^[l, u] C_{T-1}[d][r, u]
+  warp_mm<4, 2, true>(m.L[K], rl, q, w.Gh, q, 1, cores.c[K] + row, 1, q,
+                      [&](int i, int j, float v) { SG[i * rl + j] += v; });
+  __syncwarp();
+}
+
+// The segment's share: SG through cores T-2 .. 0, then SG zeroed.
+template <int T>
+__device__ __forceinline__ void grads_flush(const int* d, const TTMeta& m, const CorePtrs& cores,
+                                            GradsWarp& w, float* __restrict__ grad) {
+  const int lane = threadIdx.x & 31;
+  const float* G = w.SG;
+#pragma unroll
+  for (int k = T - 2; k >= 1; --k) {
+    const int rk = m.r[k], Mk = m.q[k] * m.r[k + 1];
+    const long long row = (long long)d[k] * m.F[k];
+    float* g = grad + m.off[k] + row;
+    float* Gn = w.Gb + w.poff[k - 1];
+    // dC_k[d_k][r, m] += sum_l P_{k-1}[l, r] G_k[l, m]
+    warp_mm<2, 2, false>(rk, Mk, m.L[k], w.P + w.poff[k - 1], 1, rk, G, Mk, 1,
+                         [&](int i, int j, float v) { atomicAdd(g + i * Mk + j, v); });
+    // G_{k-1}[l, r] = sum_m G_k[l, m] C_k[d_k][r, m]
+    warp_mm<2, 2, true>(m.L[k], rk, Mk, G, Mk, 1, cores.c[k] + row, 1, Mk,
+                        [&](int i, int j, float v) { Gn[i * rk + j] = v; });
+    __syncwarp();
+    G = Gn;
+  }
+  float* g0 = grad + m.off[0] + (long long)d[0] * m.F[0];
+  for (int i = lane; i < m.F[0]; i += 32) atomicAdd(g0 + i, G[i]);
+  __syncwarp();
+  const int n = m.L[T - 1] * m.r[T - 1];
+  for (int i = lane; i < n; i += 32) w.SG[i] = 0.f;
+  __syncwarp();
+}
+
+// ids: sorted (B,); perm: their positions in d_out (B, D).  Warps take
+// chunks of `chunk` sorted positions; see the note at the top of the file.
 template <int T, typename DT>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-tt_grads_kernel(const int* __restrict__ ids, const DT* __restrict__ dout,
-                long long B, CorePtrs cores, TTMeta m,
-                float* __restrict__ grad) {
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kGradsBlocksPerSM)
+tt_grads_kernel(const int* __restrict__ ids, const long long* __restrict__ perm,
+                const DT* __restrict__ dout, long long B, int chunk, CorePtrs cores,
+                TTMeta m, float* __restrict__ grad) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float* base = smem + warp * (m.P_total + 2 * m.S + m.C_stage);
-  float* P = base;                     // left partials P_0 .. P_{T-2}
-  float* g0 = P + m.P_total;           // chain-gradient ping-pong
-  float* g1 = g0 + m.S;
-  float* cst = g1 + m.S;               // staged core row, odd pitch
-
-  for (long long b = (long long)blockIdx.x * kWarpsPerBlock + warp; b < B;
-       b += (long long)gridDim.x * kWarpsPerBlock) {
-    int d[T];
-    digits_of<T>(ids[b], m, d);
-
-    // forward: P_0 = core-0 row, P_k = P_{k-1} x C_k[d_k]
-    int poff[T];
-    poff[0] = 0;
-    {
-      const float* c0 = cores.c[0] + (long long)d[0] * m.F[0];
-      for (int i = lane; i < m.F[0]; i += 32) P[i] = __ldg(c0 + i);
-    }
-    __syncwarp();
+  const int last = m.L[T - 1] * m.r[T - 1];  // size of P_{T-2}, G_{T-2}
+  GradsWarp w;
+  w.P = smem + warp * (2 * m.P_total + m.D + 2 * kStage);
+  w.Gb = w.P + m.P_total;
+  w.SG = w.Gb + (m.P_total - last);
+  w.Gh = w.SG + last;
+  int* s_id = reinterpret_cast<int*>(w.Gh + m.D);
+  int* s_pos = s_id + kStage;
+  w.poff[0] = 0;
 #pragma unroll
-    for (int k = 1; k < T - 1; ++k) {
-      const int rin = m.r[k];
-      const int mm = m.q[k] * m.r[k + 1];
-      const int n = m.L[k] * mm;
-      poff[k] = poff[k - 1] + m.L[k] * rin;
-      const float* prev = P + poff[k - 1];
-      float* cur = P + poff[k];
-      const float* ck = cores.c[k] + (long long)d[k] * m.F[k];
-      for (int o = lane; o < n; o += 32) {
-        const int l = o / mm;
-        const int c = o - l * mm;
-        float acc = 0.f;
-        for (int r = 0; r < rin; ++r)
-          acc = fmaf(prev[l * rin + r], __ldg(ck + r * mm + c), acc);
-        cur[o] = acc;
+  for (int k = 1; k < T - 1; ++k) w.poff[k] = w.poff[k - 1] + m.L[k] * m.r[k];
+  for (int i = lane; i < last; i += 32) w.SG[i] = 0.f;
+
+  const long long n_chunks = (B + chunk - 1) / chunk;
+  for (long long c = (long long)blockIdx.x * kWarpsPerBlock + warp; c < n_chunks;
+       c += (long long)gridDim.x * kWarpsPerBlock) {
+    const long long hi = (c + 1) * chunk < B ? (c + 1) * chunk : B;
+    int d[T] = {};  // digits of the current id
+    int cur = 0;
+    bool have = false;
+    for (long long s0 = c * chunk; s0 < hi; s0 += kStage) {
+      const int n = hi - s0 < kStage ? (int)(hi - s0) : kStage;
+      __syncwarp();  // the last stage's reads are done
+      if (lane < n) {
+        s_id[lane] = ids[s0 + lane];
+        s_pos[lane] = (int)perm[s0 + lane];
       }
       __syncwarp();
-    }
-
-    // G_{T-1} = d_out row, upcast to f32 as it is staged
-    const DT* drow = dout + b * m.D;
-    for (int i = lane; i < m.D; i += 32) g0[i] = to_f32(drow[i]);
-    __syncwarp();
-    float* G = g0;
-    float* Gn = g1;
-
+      for (int j = 0; j < n;) {
+        const int id = s_id[j];
+        if (!have || id != cur) {
+          int nd[T];
+          digits_of<T>(id, m, nd);
+          int f = have ? T - 1 : 0;  // the first prefix digit that changes
+          if (have) {
 #pragma unroll
-    for (int k = T - 1; k >= 0; --k) {
-      const int rin = m.r[k];
-      const int mm = m.q[k] * m.r[k + 1];
-      const int Lk = m.L[k];
-      float* gk = grad + m.off[k] + (long long)d[k] * m.F[k];
-      const float* ck = cores.c[k] + (long long)d[k] * m.F[k];
-      const int pitch = row_pitch(mm);
-      if (k > 0) {
-        for (int i = lane; i < m.F[k]; i += 32) {
-          const int r = i / mm;
-          cst[r * pitch + (i - r * mm)] = __ldg(ck + i);
+            for (int k = T - 2; k >= 0; --k)
+              if (nd[k] != d[k]) f = k;
+            __syncwarp();  // G^ complete
+            grads_id<T>(d, m, cores, w, grad);
+            if (f < T - 1) grads_flush<T>(d, m, cores, w, grad);
+          }
+#pragma unroll
+          for (int k = 0; k < T; ++k) d[k] = nd[k];
+          if (f < T - 1) grads_prefix<T>(f, d, m, cores, w);
+          for (int i = lane; i < m.D; i += 32) w.Gh[i] = 0.f;
+          cur = id;
+          have = true;
         }
-      }
-      // dC_k[r, c] = sum_l P_{k-1}[l, r] * G[l, c]   (P_{-1} = 1)
-      const float* prev = (k > 0) ? P + poff[k - 1] : nullptr;
-      for (int o = lane; o < m.F[k]; o += 32) {
-        const int r = o / mm;
-        const int c = o - r * mm;
-        float acc;
-        if (k > 0) {
-          acc = 0.f;
-          for (int l = 0; l < Lk; ++l) acc = fmaf(prev[l * rin + r], G[l * mm + c], acc);
-        } else {
-          acc = G[c];
+        // this stage's run of the id: its d_out rows into G^ (each lane its
+        // own columns), several rows in flight
+        int e = j + 1;
+        while (e < n && s_id[e] == id) ++e;
+        for (int i = lane; i < m.D; i += 32) {
+          float acc = w.Gh[i];
+#pragma unroll 4
+          for (int jj = j; jj < e; ++jj) acc += to_f32(dout[(long long)s_pos[jj] * m.D + i]);
+          w.Gh[i] = acc;
         }
-        atomicAdd(gk + o, acc);
-      }
-      if (k > 0) {
-        __syncwarp();  // staged core row visible to every lane
-        // G_{k-1}[l, r] = sum_c C_k[r, c] * G[l, c]
-        for (int o = lane; o < Lk * rin; o += 32) {
-          const int l = o / rin;
-          const int r = o - l * rin;
-          const float* crow = cst + r * pitch;
-          const float* grow = G + l * mm;
-          float acc = 0.f;
-          for (int c = 0; c < mm; ++c) acc = fmaf(crow[c], grow[c], acc);
-          Gn[o] = acc;
-        }
-        __syncwarp();
-        float* t = G;
-        G = Gn;
-        Gn = t;
+        j = e;
       }
     }
-    __syncwarp();
+    if (have) {
+      __syncwarp();
+      grads_id<T>(d, m, cores, w, grad);
+      grads_flush<T>(d, m, cores, w, grad);
+    }
   }
 }
 
@@ -513,27 +649,35 @@ cudaError_t launch_fwd_store(int out_kind, const int* ids, long long B,
   return cudaErrorInvalidValue;
 }
 
+// One wave: as many CTAs as fit on the card at once, fewer if there are
+// fewer chunks than warps.
 template <int T, typename DT>
-cudaError_t launch_grads(const int* ids, const DT* dout, long long B,
-                         const CorePtrs& c, const TTMeta& m, float* grad,
+cudaError_t launch_grads(const int* ids, const long long* perm, const DT* dout, long long B,
+                         int chunk, const CorePtrs& c, const TTMeta& m, float* grad,
                          cudaStream_t st) {
+  auto kernel = tt_grads_kernel<T, DT>;
   const size_t smem =
-      sizeof(float) * kWarpsPerBlock * (m.P_total + 2 * m.S + m.C_stage);
-  cudaError_t e = set_smem(tt_grads_kernel<T, DT>, smem);
+      kWarpsPerBlock * (sizeof(float) * (2 * m.P_total + m.D) + sizeof(int) * 2 * kStage);
+  cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  tt_grads_kernel<T, DT><<<blocks_for(B), kWarpsPerBlock * 32, smem, st>>>(
-      ids, dout, B, c, m, grad);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarpsPerBlock * 32, smem);
+  if (e != cudaSuccess) return e;
+  const long long want = ((B + chunk - 1) / chunk + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const long long cap = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+  kernel<<<(unsigned)(want < cap ? want : cap), kWarpsPerBlock * 32, smem, st>>>(
+      ids, perm, dout, B, chunk, c, m, grad);
   return cudaGetLastError();
 }
 
 template <typename DT>
-cudaError_t launch_grads_T(const int* ids, const DT* dout, long long B,
-                           const CorePtrs& c, const TTMeta& m, float* grad,
+cudaError_t launch_grads_T(const int* ids, const long long* perm, const DT* dout, long long B,
+                           int chunk, const CorePtrs& c, const TTMeta& m, float* grad,
                            cudaStream_t st) {
   switch (m.T) {
-    case 2: return launch_grads<2, DT>(ids, dout, B, c, m, grad, st);
-    case 3: return launch_grads<3, DT>(ids, dout, B, c, m, grad, st);
-    case 4: return launch_grads<4, DT>(ids, dout, B, c, m, grad, st);
+    case 2: return launch_grads<2, DT>(ids, perm, dout, B, chunk, c, m, grad, st);
+    case 3: return launch_grads<3, DT>(ids, perm, dout, B, chunk, c, m, grad, st);
+    case 4: return launch_grads<4, DT>(ids, perm, dout, B, chunk, c, m, grad, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -603,20 +747,26 @@ int tt_fwd(const void* ids, long long B, const int* spec, const void* c0,
 }
 
 // grad (n_total,) f32, zeroed by the caller, accumulates the per-core
-// gradients, core after core in the flat layout.  d_out (B, D) is f32, or
-// bf16 when dout_bf16 is 1.
-int tt_grads(const void* ids, const void* dout, int dout_bf16, long long B,
-             const int* spec, const void* c0, const void* c1, const void* c2,
+// gradients, core after core in the flat layout, from ids (B,) int32 in
+// ascending order and perm (B,) int64, the position in d_out (B, D) of each
+// sorted id (torch.sort's values and indices).  d_out is f32, or bf16 when
+// dout_bf16 is 1.  Each warp takes `chunk` consecutive sorted positions.
+int tt_grads(const void* ids, const void* perm, const void* dout, int dout_bf16, long long B,
+             int chunk, const int* spec, const void* c0, const void* c1, const void* c2,
              const void* c3, void* grad, void* stream) {
   TTMeta m;
-  if (!make_meta(spec, &m)) return cudaErrorInvalidValue;
+  if (!make_meta(spec, &m) || chunk <= 0 || B < 0 || B > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
   const CorePtrs c = core_ptrs(c0, c1, c2, c3);
   const int* id = static_cast<const int*>(ids);
+  const long long* pos = static_cast<const long long*>(perm);
   float* out = static_cast<float*>(grad);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dout_bf16)
-    return launch_grads_T(id, static_cast<const __nv_bfloat16*>(dout), B, c, m, out, st);
-  return launch_grads_T(id, static_cast<const float*>(dout), B, c, m, out, st);
+    return launch_grads_T(id, pos, static_cast<const __nv_bfloat16*>(dout), B, chunk, c, m,
+                          out, st);
+  return launch_grads_T(id, pos, static_cast<const float*>(dout), B, chunk, c, m, out, st);
 }
 
 // In-place Adam on T cores: cores/m/v/g are T separate f32 arrays of

@@ -37,7 +37,7 @@ _pp = ctypes.POINTER(_p)
 _SIGNATURES: Dict[str, Dict[str, list]] = {
     "tt_kernels": {
         "tt_fwd": [_p, _ll, ctypes.POINTER(_i), _p, _p, _p, _p, _p, _i, _p, _i, _p],
-        "tt_grads": [_p, _p, _i, _ll, ctypes.POINTER(_i), _p, _p, _p, _p, _p, _p],
+        "tt_grads": [_p, _p, _p, _i, _ll, _i, ctypes.POINTER(_i), _p, _p, _p, _p, _p, _p],
         "tt_adam_apply": [_i, ctypes.POINTER(_ll), _pp, _pp, _pp, _pp,
                           _p, _f, _f, _f, _f, _f, _p],
         "tt_sgd_apply": [_i, ctypes.POINTER(_ll), _pp, _pp, _f, _p],
@@ -45,9 +45,8 @@ _SIGNATURES: Dict[str, Dict[str, list]] = {
                              _f, _f, _i, _p],
     },
     "spmm_kernels": {
-        "spmm_seg_mm": [_p, _i, _ll, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
-                        _p, _ll, _p],
-        "spmm_tile_sum": [_p, _i, _ll, _i, _p, _p, _p, _p, _ll, _i, _i, _i, _p, _ll, _p],
+        "spmm_tile_sum": [_p, _i, _ll, _i, _p, _p, _p, _p, _p, _i, _ll, _i, _i, _i, _p, _ll,
+                          _p],
         "spmm_window_gather": [_p, _i, _ll, _i, _p, _p, _p, _i, _ll, _p, _p],
     },
 }

@@ -1,6 +1,6 @@
 """Tiled SpMM (``--spmm pallas``): the host tilers, the wrappers of the
-Hopper kernels ``spmm_seg_mm`` and ``spmm_tile_sum`` (``csrc/spmm_kernels.cu``)
-and their plain PyTorch versions.
+Hopper kernel ``spmm_tile_sum`` (``csrc/spmm_kernels.cu``) and their plain
+PyTorch versions.
 
 Port of ``falcon_ttdforgnns_tpu/ops/spmm_pallas.py``:
 
@@ -21,19 +21,20 @@ sorted edges are cut into tiles of at most E_t slots (src, dstl, w) whose
 dst rows lie in one NR-row output block; every block gets at least one
 tile.  The TPU needed two things the card does not: ``first`` flags (its
 grid ran tile after tile and carried a block's sum in VMEM) and chunks (to
-bound the messages ``h[src]`` gathered before the kernel).  The Hopper
-kernel sums each block's tiles inside one CTA and reads ``h`` itself, so
-the wrappers take neither: a block's value is the sum of its tiles.  For
-the uniform tiling the result is the reference's scan, in which a chunk's
-pad blocks are overwritten by the next chunk: each block comes from the
-last chunk in order that covers it.
+bound the messages ``h[src]`` gathered before the kernel).  On the card
+every wrapper is one memset of the (num_nodes, D) output and one launch of
+``spmm_tile_sum``, which reads ``h`` itself and adds every slot's
+``w * h[src]`` into its row with vector atomics at the end of each run of
+one row: a block's value is the sum of its tiles, so the wrappers take no
+``first``.  For the uniform tiling the result is the reference's scan, in
+which a chunk's pad blocks are overwritten by the next chunk: each block
+comes from the last chunk in order that covers it, and the kernel drops the
+tiles of a chunk whose block the next chunk covers.
 
 ``spmm_sum_tile_partials`` keeps the reference's two stages only in its
 plain version (:func:`tile_mm_plain`, one (NR, D) partial per tile, then
 :func:`_sum_partials` by block id), which the tests hold to JAX and the
-kernel to.  On the card there are no partials: one memset zeroes the
-(num_nodes, D) output and one kernel adds every slot's ``w * h[src]``
-into its row with vector atomics at the end of each run of one row.
+kernel to; on the card there are no partials.
 
 Precision: the reference gathers and multiplies in bf16 on a TPU and in
 f32 in interpret mode.  The port computes in f32 on both devices by
@@ -294,29 +295,42 @@ def _check_h(h: torch.Tensor) -> None:
         raise ValueError(f"h must be a contiguous (N, D) tensor, got {tuple(h.shape)}")
 
 
-def _launch_seg_mm(h, src, dstl, w, blkl, blk0, out_rows, NBC, NR, E_t, compute_dtype):
-    """One launch over every chunk: (out_rows, D) f32."""
-    h_g = _gather_dtype(h, compute_dtype)
+def _launch_tile_sum(h, src, dstl, w, blkl, blk0, NR, E_t, num_nodes, compute_dtype,
+                     count):
+    """One memset and one ``spmm_tile_sum`` launch over the tiles of
+    ``blkl`` ((C, TC) with ``blk0`` (C,) for the uniform tiling, (T,) with
+    ``blk0`` None for the flat one): (num_nodes, D) f32.  Counts under
+    ``count`` (``count[bf16]`` with bf16 compute)."""
+    h_g = _gather_dtype(h, compute_dtype)  # bf16 compute gathers bf16 rows, half the bytes
     _check_h(h_g)
-    C, TC = blkl.shape
-    for name, t, dt, n in (("src", src, torch.int32, C * TC * E_t),
-                           ("dstl", dstl, torch.int32, C * TC * E_t),
-                           ("w", w, torch.float32, C * TC * E_t),
-                           ("blkl", blkl, torch.int32, C * TC), ("blk0", blk0, torch.int32, C)):
+    C, TC = blkl.shape if blkl.dim() == 2 else (1, blkl.shape[0])
+    checks = [("src", src, torch.int32, C * TC * E_t), ("dstl", dstl, torch.int32, C * TC * E_t),
+              ("w", w, torch.float32, C * TC * E_t), ("blkl", blkl, torch.int32, C * TC)]
+    if blk0 is not None:
+        checks.append(("blk0", blk0, torch.int32, C))
+    for name, t, dt, n in checks:
         _check(t, name, dt, n)
-    if bool((blkl[:, 1:] < blkl[:, :-1]).any()) or bool((blk0[1:] < blk0[:-1]).any()):
-        raise ValueError("block ids must be non-decreasing within each chunk, and "
-                         "chunks in block order (as the tilers make them)")
-    out = torch.zeros((out_rows, h.shape[1]), dtype=torch.float32, device=h.device)
+    D = h.shape[1]
+    out = torch.empty((num_nodes, D), dtype=torch.float32, device=h.device)
     bf16 = compute_dtype == torch.bfloat16
-    rc = _build.library("spmm_kernels").spmm_seg_mm(
-        h_g.data_ptr(), int(h_g.dtype == torch.bfloat16), h_g.shape[0], h_g.shape[1],
-        src.data_ptr(), dstl.data_ptr(), w.data_ptr(), blkl.data_ptr(), blk0.data_ptr(),
-        C, TC, NBC, NR, E_t, int(bf16), out.data_ptr(), out_rows,
-        _build.current_stream(h.get_device()))
-    _build.check(rc, "spmm_seg_mm", "spmm_kernels")
-    _launches["spmm_tiled[bf16]" if bf16 else "spmm_tiled"] += 1
+    rc = _build.library("spmm_kernels").spmm_tile_sum(
+        h_g.data_ptr(), int(h_g.dtype == torch.bfloat16), h_g.shape[0], D, src.data_ptr(),
+        dstl.data_ptr(), w.data_ptr(), blkl.data_ptr(),
+        None if blk0 is None else blk0.data_ptr(), C, TC, NR, E_t, int(bf16), out.data_ptr(),
+        num_nodes, _build.current_stream(h.get_device()))
+    _build.check(rc, "spmm_tile_sum", "spmm_kernels")
+    if C * TC > 0 and num_nodes > 0:
+        _launches[f"{count}[bf16]" if bf16 else count] += 1
     return out
+
+
+def _check_chunk_order(blk0: torch.Tensor) -> None:
+    """The kernel drops a tile of chunk c whose block is at or past
+    ``blk0[c + 1]`` (a later chunk's block), which needs the chunks in
+    block order."""
+    if bool((blk0[1:] < blk0[:-1]).any()):
+        raise ValueError("chunks must be in block order (blk0 non-decreasing), "
+                         "as the tiler makes them")
 
 
 # ----------------------------------------------------------------- wrappers
@@ -331,9 +345,9 @@ def spmm_sum_tiled_uniform(h: torch.Tensor, src: torch.Tensor, dstl: torch.Tenso
         return seg_mm_plain(h, src, dstl, w, blkl, blk0, num_blocks_padded,
                             blocks_per_chunk, block_rows, tile_edges,
                             compute_dtype)[:num_nodes]
-    return _launch_seg_mm(h, src, dstl, w, blkl, blk0, num_blocks_padded * block_rows,
-                          blocks_per_chunk, block_rows, tile_edges,
-                          compute_dtype)[:num_nodes]
+    _check_chunk_order(blk0)
+    return _launch_tile_sum(h, src, dstl, w, blkl, blk0, block_rows, tile_edges, num_nodes,
+                            compute_dtype, "spmm_tiled")
 
 
 def spmm_sum_tiled_arrays(h: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
@@ -343,14 +357,12 @@ def spmm_sum_tiled_arrays(h: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor
     """The flat tiling (:class:`SpmmTiles`'s ``src``, ``dstl``, ``w``,
     ``blk`` as tensors): one chunk of every tile, so the same kernel and
     plain version as the uniform tiling."""
-    blkl = blk.reshape(1, -1)
-    blk0 = torch.zeros(1, dtype=blk.dtype, device=blk.device)
-    src, dstl, w = (a.reshape(1, -1) for a in (src, dstl, w))
-    if _on_cpu(h, src, dstl, w, blkl):
-        return seg_mm_plain(h, src, dstl, w, blkl, blk0, num_blocks, num_blocks,
+    if _on_cpu(h, src, dstl, w, blk):
+        return seg_mm_plain(h, *(a.reshape(1, -1) for a in (src, dstl, w, blk)),
+                            torch.zeros(1, dtype=blk.dtype), num_blocks, num_blocks,
                             block_rows, tile_edges, compute_dtype)[:num_nodes]
-    return _launch_seg_mm(h, src, dstl, w, blkl, blk0, num_blocks * block_rows,
-                          num_blocks, block_rows, tile_edges, compute_dtype)[:num_nodes]
+    return _launch_tile_sum(h, src, dstl, w, blk, None, block_rows, tile_edges, num_nodes,
+                            compute_dtype, "spmm_tiled")
 
 
 def spmm_sum_tiled(h: torch.Tensor, tiles: SpmmTiles, num_nodes: int,
@@ -394,21 +406,5 @@ def spmm_sum_tile_partials(h: torch.Tensor, src: torch.Tensor, dstl: torch.Tenso
     if _on_cpu(h, src, dstl, w, blk):
         return tile_partials_plain(h, src, dstl, w, blk, num_blocks, block_rows, tile_edges,
                                    num_nodes, compute_dtype)
-    NR, E_t, D = block_rows, tile_edges, h.shape[1]
-    T = blk.shape[0]
-    h_g = _gather_dtype(h, compute_dtype)  # bf16 compute gathers bf16 rows, half the bytes
-    _check_h(h_g)
-    for name, t, dt, n in (("src", src, torch.int32, T * E_t),
-                           ("dstl", dstl, torch.int32, T * E_t),
-                           ("w", w, torch.float32, T * E_t), ("blk", blk, torch.int32, T)):
-        _check(t, name, dt, n)
-    out = torch.empty((num_nodes, D), dtype=torch.float32, device=h.device)
-    bf16 = compute_dtype == torch.bfloat16
-    rc = _build.library("spmm_kernels").spmm_tile_sum(
-        h_g.data_ptr(), int(h_g.dtype == torch.bfloat16), h_g.shape[0], D, src.data_ptr(),
-        dstl.data_ptr(), w.data_ptr(), blk.data_ptr(), T, NR, E_t,
-        int(bf16), out.data_ptr(), num_nodes, _build.current_stream(h.get_device()))
-    _build.check(rc, "spmm_tile_sum", "spmm_kernels")
-    if T > 0 and num_nodes > 0:
-        _launches["spmm_tile_partials[bf16]" if bf16 else "spmm_tile_partials"] += 1
-    return out
+    return _launch_tile_sum(h, src, dstl, w, blk, None, block_rows, tile_edges, num_nodes,
+                            compute_dtype, "spmm_tile_partials")

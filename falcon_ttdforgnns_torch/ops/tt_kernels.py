@@ -19,8 +19,13 @@ Each fused update of the TPU (one ``pallas_call``) is two launches on the
 card: ``tt_grads``, then the in-place update (``tt_fused_adam``,
 ``tt_fused_sgd``, ``tt_fused_adagrad``).  What bounds each kernel on the
 card and what its design does about it is written at the top of the CUDA
-source.  A wrapper runs the plain version only for tensors on the CPU; for
-a CUDA tensor it launches its kernel or raises.  Every launch adds one to
+source.  ``tt_grads`` walks the ids in sorted order (:func:`grouped_order`)
+so that ids of one prefix share the chain's work; :func:`tt_grads_grouped_plain`
+repeats that walk in plain PyTorch (equal ids summed, one flush per prefix
+within a chunk), and :func:`grouped_counts` counts its pieces and
+segments, what the kernel's time depends on.  A wrapper runs the plain
+version only for tensors on the CPU; for a CUDA tensor it launches its
+kernel or raises.  Every launch adds one to
 its entry in :func:`launch_counts`, one entry per kernel variant
 (``KERNELS``).
 """
@@ -28,12 +33,12 @@ its entry in :func:`launch_counts`, one entry per kernel variant
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
-from .tt_lookup import tt_core_grads, tt_lookup_gather
+from .tt_lookup import tt_core_grads, tt_digits, tt_lookup_gather
 from .tt_shapes import TTShapes
 
 KERNELS = ("tt_fwd", "tt_fwd[bf16]", "tt_fwd_sr", "tt_grads", "tt_grads[bf16]",
@@ -197,15 +202,112 @@ def tt_fwd_sr(shapes: TTShapes, cores: Sequence[torch.Tensor], ids: torch.Tensor
 
 
 # ---------------------------------------------------------------- tt_grads
+# Sorted positions one warp of the tt_grads kernel takes: 64 makes 14,656
+# chunks of the main path's 937,984 ids (3.5 per warp of a full H100) and
+# adds at most one segment per chunk to the <= 17,500 prefix runs.  On the
+# main path's sampled ids, timed by chip_smoke.py at 32, 64 and 128 on an
+# H100, 64 beat 32 by 7% and 128 by 4-5% (PERF.md).  Each function below
+# that takes ``chunk`` reads this when it is None.
+GRADS_CHUNK = 64
+
+
 def tt_grads_plain(shapes: TTShapes, cores: Sequence[torch.Tensor],
                    ids: torch.Tensor, d_out: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return tt_core_grads(shapes, cores, ids, d_out)
 
 
+def grouped_order(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The order in which ``tt_grads`` walks the ids: ascending, so equal
+    ids sit side by side and the ids of one prefix (digits d_0..d_{T-2},
+    ``id // p_last``) form one run.  (sorted ids, their int64 positions in
+    ``ids``), from ``torch.sort``."""
+    return torch.sort(ids)
+
+
+def grouped_walk(shapes: TTShapes, sorted_ids: torch.Tensor,
+                 chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where the kernel's walk over ``sorted_ids`` in chunks of ``chunk``
+    positions starts a piece (one id within one chunk) and a segment (one
+    prefix within one chunk): two boolean masks (B,)."""
+    B, chunk = sorted_ids.shape[0], chunk or GRADS_CHUNK
+    start = torch.arange(B, device=sorted_ids.device) % chunk == 0
+    sid = sorted_ids.long()
+    prefix = torch.div(sid, shapes.p_last, rounding_mode="floor") % shapes.num_groups
+    piece, segment = start.clone(), start.clone()
+    piece[1:] |= sid[1:] != sid[:-1]
+    segment[1:] |= prefix[1:] != prefix[:-1]
+    return piece, segment
+
+
+def grouped_counts(shapes: TTShapes, ids: torch.Tensor, chunk: Optional[int] = None) -> dict:
+    """What ``tt_grads``' work depends on, for these ids: distinct ids,
+    prefix runs, pieces (distinct ids, split at chunk starts) and segments
+    (prefix runs, split at chunk starts)."""
+    sid, _ = grouped_order(ids)
+    B = sid.shape[0]
+    distinct, prefix_runs = grouped_walk(shapes, sid, max(B, 1))  # one chunk
+    piece, segment = grouped_walk(shapes, sid, chunk)
+    return {"ids": B, "distinct": int(distinct.sum()), "prefix_runs": int(prefix_runs.sum()),
+            "pieces": int(piece.sum()), "segments": int(segment.sum())}
+
+
+def tt_grads_grouped_plain(shapes: TTShapes, cores: Sequence[torch.Tensor],
+                           ids: torch.Tensor, d_out: torch.Tensor,
+                           chunk: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """``tt_grads_plain`` computed in the kernel's order: the ids sorted
+    (:func:`grouped_order`), the d_out rows of each piece summed into G^;
+    per piece the last core's gradient row P_{T-2}^T G^ and its share
+    G^ C_{T-1}^T of the segment's chain gradient; per segment that sum
+    through cores T-2..0.  Batched over pieces and segments with bmm and
+    index_add_, so only the grouping, not the order of the sums, is the
+    kernel's."""
+    T, fr, q = shapes.ndim, shapes.full_ranks, shapes.q_shapes
+    dev = d_out.device
+    grads = [torch.zeros(shapes.core_shape(k), dtype=torch.float32, device=dev)
+             for k in range(T)]
+    if ids.shape[0] == 0:
+        return tuple(grads)
+    sid, perm = grouped_order(ids)
+    piece, segment = grouped_walk(shapes, sid, chunk)
+    first = torch.nonzero(piece).squeeze(1)  # each piece's first position
+    n_pc = first.shape[0]
+    g_hat = torch.zeros((n_pc, shapes.embedding_dim), dtype=torch.float32, device=dev)
+    g_hat.index_add_(0, torch.cumsum(piece.long(), 0) - 1, d_out.index_select(0, perm).float())
+    digits = tt_digits(shapes, sid.index_select(0, first))
+    seg_of = (torch.cumsum(segment.long(), 0) - 1).index_select(0, first)
+    n_seg = int(segment.sum())
+    seg_first = torch.nonzero(segment.index_select(0, first)).squeeze(1)  # a segment's first piece
+    seg_digits = [d.index_select(0, seg_first) for d in digits]
+    lefts = [cores[0].index_select(0, seg_digits[0]).reshape(n_seg, -1, fr[1])]
+    for k in range(1, T - 1):
+        c = cores[k].index_select(0, seg_digits[k]).reshape(n_seg, fr[k], -1)
+        lefts.append(torch.bmm(lefts[-1], c).reshape(n_seg, -1, fr[k + 1]))
+    # per piece: the last core's gradient row, and G^ C_{T-1}^T into the segment's sum
+    L_last = shapes.embedding_dim // q[-1]
+    gh = g_hat.reshape(n_pc, L_last, q[-1])
+    c_last = cores[-1].index_select(0, digits[-1]).reshape(n_pc, fr[T - 1], q[-1])
+    grads[-1].index_add_(0, digits[-1], torch.bmm(
+        lefts[-1].index_select(0, seg_of).transpose(1, 2), gh).reshape(n_pc, fr[T - 1], q[-1], 1))
+    G = torch.zeros((n_seg, L_last, fr[T - 1]), dtype=torch.float32, device=dev)
+    G.index_add_(0, seg_of, torch.bmm(gh, c_last.transpose(1, 2)))
+    # per segment: cores T-2 .. 1, then core 0
+    for k in range(T - 2, 0, -1):
+        G = G.reshape(n_seg, lefts[k - 1].shape[1], -1)  # (L_k, q_k r_{k+1})
+        grads[k].index_add_(0, seg_digits[k], torch.bmm(lefts[k - 1].transpose(1, 2), G)
+                            .reshape(n_seg, *shapes.core_shape(k)[1:]))
+        c = cores[k].index_select(0, seg_digits[k]).reshape(n_seg, fr[k], -1)
+        G = torch.bmm(G, c.transpose(1, 2))
+    grads[0].index_add_(0, seg_digits[0], G.reshape(n_seg, *shapes.core_shape(0)[1:]))
+    return tuple(grads)
+
+
 def tt_grads(shapes: TTShapes, cores: Sequence[torch.Tensor], ids: torch.Tensor,
-             d_out: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+             d_out: torch.Tensor, chunk: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """Dense per-core f32 gradients of a TT lookup from ids (B,) int32 and
-    d_out (B, D) f32 or bf16; duplicate ids accumulate."""
+    d_out (B, D) f32 or bf16; duplicate ids accumulate.  On the card: the
+    ids sorted (:func:`grouped_order`, counted in this call's time), then
+    one kernel over chunks of ``chunk`` (default ``GRADS_CHUNK``) sorted
+    positions."""
     if _on_cpu(ids, d_out, *cores):
         return tt_grads_plain(shapes, cores, ids, d_out)
     B = ids.shape[0]
@@ -216,9 +318,11 @@ def tt_grads(shapes: TTShapes, cores: Sequence[torch.Tensor], ids: torch.Tensor,
     _check_cores(shapes, cores)
     out = torch.zeros((shapes.num_tt_params,), dtype=torch.float32, device=ids.device)
     if B > 0:
-        rc = _build.library().tt_grads(ids.data_ptr(), d_out.data_ptr(), int(bf16), B,
-                                       _spec(shapes), *_core_ptrs(cores),
-                                       out.data_ptr(), _build.current_stream(ids.get_device()))
+        sid, perm = grouped_order(ids)
+        rc = _build.library().tt_grads(sid.data_ptr(), perm.data_ptr(), d_out.data_ptr(),
+                                       int(bf16), B, chunk or GRADS_CHUNK, _spec(shapes),
+                                       *_core_ptrs(cores), out.data_ptr(),
+                                       _build.current_stream(ids.get_device()))
         _build.check(rc, "tt_grads")
         _launches["tt_grads[bf16]" if bf16 else "tt_grads"] += 1
     grads, off = [], 0

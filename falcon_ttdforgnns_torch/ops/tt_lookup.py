@@ -46,7 +46,7 @@ def _chain(shapes: TTShapes, cores: Cores, digits: Sequence[torch.Tensor],
     for k in range(start + 1, stop):
         c = cores[k].index_select(0, digits[k])
         c = c.reshape(B, c.shape[1], c.shape[2] * c.shape[3])
-        g = torch.bmm(g, c).reshape(B, -1, cores[k].shape[3])
+        g = torch.bmm(g, c).reshape(B, g.shape[1] * cores[k].shape[2], cores[k].shape[3])
     return g
 
 
@@ -75,17 +75,18 @@ def _partials(shapes: TTShapes, cores: Cores, digits: Sequence[torch.Tensor]):
     fr = shapes.full_ranks
     one = torch.ones((B, 1, 1), dtype=cores[0].dtype, device=cores[0].device)
     lefts: List[torch.Tensor] = [one]
-    g = cores[0].index_select(0, digits[0]).reshape(B, -1, fr[1])
+    q = shapes.q_shapes
+    g = cores[0].index_select(0, digits[0]).reshape(B, q[0], fr[1])
     lefts.append(g)
     for k in range(1, T - 1):
-        c = cores[k].index_select(0, digits[k]).reshape(B, fr[k], -1)
-        lefts.append(torch.bmm(lefts[-1], c).reshape(B, -1, fr[k + 1]))
+        c = cores[k].index_select(0, digits[k]).reshape(B, fr[k], q[k] * fr[k + 1])
+        lefts.append(torch.bmm(lefts[-1], c).reshape(B, lefts[-1].shape[1] * q[k], fr[k + 1]))
 
     rights: List[torch.Tensor] = [one] * T
     for k in range(T - 2, -1, -1):
         c = cores[k + 1].index_select(0, digits[k + 1])  # (B, r, q, r')
         g = torch.einsum("brqs,bsR->brqR", c, rights[k + 1])
-        rights[k] = g.reshape(B, c.shape[1], -1)
+        rights[k] = g.reshape(B, c.shape[1], c.shape[2] * rights[k + 1].shape[2])
     return lefts, rights
 
 

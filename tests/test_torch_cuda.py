@@ -80,6 +80,52 @@ def test_kernels_match_plain(cuda, ndim):
         "tt_fwd": 1, "tt_grads": 1, "tt_adam_apply": 1}
 
 
+def grouped_case(kind, n, rng):
+    """Unsorted ids for the grouped backward: long runs and duplicates among
+    singles, one id's run past several 64-position chunks, one id over the
+    whole batch, B = 1 and B = 0."""
+    if kind == "runs_and_duplicates":
+        ids = np.concatenate([np.repeat(rng.integers(0, n, 8), rng.integers(5, 60, 8)),
+                              rng.integers(0, n, 700)])
+    elif kind == "run_past_chunks":
+        ids = np.concatenate([np.full(300, n // 3), rng.integers(0, n, 400)])
+    elif kind == "one_id":
+        ids = np.full(1000, n - 1)
+    else:
+        ids = np.arange({"b1": 1, "b0": 0}[kind]) + n // 2
+    return rng.permutation(ids).astype(np.int32)
+
+
+GROUPED_KINDS = ["runs_and_duplicates", "run_past_chunks", "one_id", "b1", "b0"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ndim", [2, 3, 4])
+def test_tt_grads_grouped_kernel_matches_plain(cuda, ndim, dtype):
+    """The sorted, prefix-grouped tt_grads against tt_grads_plain and against
+    its own order in plain PyTorch (tt_grads_grouped_plain), f32 and bf16
+    d_out (both sides upcast exactly): 1e-4 of each core's largest value,
+    the atomics summing in run-to-run order.  B = 0 launches nothing and
+    returns zeros."""
+    shapes, cores = case(ndim, cuda)
+    rng = np.random.default_rng(90 + ndim)
+    tt_kernels.reset_launch_counts()
+    for kind in GROUPED_KINDS:
+        ids = torch.tensor(grouped_case(kind, shapes.num_embeddings, rng), device=cuda)
+        g = torch.randn(ids.shape[0], shapes.embedding_dim, device=cuda).to(dtype)
+        got = tt_grads(shapes, cores, ids, g)
+        for want in (tt_kernels.tt_grads_plain(shapes, cores, ids, g),
+                     tt_kernels.tt_grads_grouped_plain(shapes, cores, ids, g)):
+            for a, b in zip(got, want):
+                assert a.dtype == torch.float32 and a.shape == b.shape
+                if kind == "b0":
+                    assert not a.any() and not b.any()
+                else:
+                    assert rel_err(a, b) <= 1e-4, kind
+    name = "tt_grads[bf16]" if dtype == torch.bfloat16 else "tt_grads"
+    assert tt_kernels.launch_counts()[name] == len(GROUPED_KINDS) - 1
+
+
 def bf16_ulps(got, want):
     """Distance in bf16 steps between two bf16 tensors of the same signs."""
     a = got.view(torch.int16).to(torch.int32)
@@ -427,6 +473,63 @@ def test_spmm_tiled_kernel_matches_plain(cuda, n, e, NR, E_t, tpc, d):
                1e-5)
 
 
+def seam_case(d, seed, n=800, e=6000, NR=32, E_t=64, tpc=16):
+    """A uniform tiling of skewed in-degrees (chunks cover 1-6 blocks and
+    pad the rest) with real slots (w != 0) put in every pad tile whose block
+    the next chunk covers: the reference's scan overwrites those blocks
+    with the next chunk's rows, so these slots must add nothing."""
+    from falcon_ttdforgnns_torch.ops import spmm_tiled as P
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = np.sort((rng.random(e) ** 2 * n).astype(np.int32))
+    tu = P.build_spmm_tiles_uniform(src, dst, n, edge_weight=rng.normal(size=e).astype(np.float32),
+                                    block_rows=NR, tile_edges=E_t, tiles_per_chunk=tpc)
+    filled = 0
+    for c in range(tu.blk0.shape[0] - 1):
+        for t in np.nonzero(tu.blk0[c] + tu.blkl[c] >= tu.blk0[c + 1])[0]:
+            sl = slice(t * E_t, (t + 1) * E_t)
+            tu.src[c, sl] = rng.integers(0, n, E_t)
+            tu.dstl[c, sl] = rng.integers(0, NR, E_t)
+            tu.w[c, sl] = rng.normal(size=E_t)
+            filled += 1
+    assert filled > 0
+    return rng.normal(size=(n, d)).astype(np.float32), tu
+
+
+@pytest.mark.parametrize("d", [37, 64, 100, 256])
+@pytest.mark.parametrize("variant", ["f32", "bf16_h", "bf16_compute", "misaligned_h"])
+def test_spmm_tiled_seam_kernel_matches_plain(cuda, d, variant):
+    """B7 on B8's engine against seg_mm_plain, the reference's scan: slots
+    at the chunk seams that the next chunk overwrites add nothing, rows past
+    num_nodes are dropped, and the call allocates the (num_nodes, D) output
+    (and, for bf16 compute of an f32 h, h's bf16 copy).  1e-5 of the
+    largest value: each row's sum meets across warps in atomic order."""
+    from falcon_ttdforgnns_torch.ops import spmm_tiled as P
+    h, tu = seam_case(d, d + len(variant))
+    num_nodes = h.shape[0] - 3
+    ht = torch.tensor(h, device=cuda)
+    if variant == "bf16_h":
+        ht = ht.to(torch.bfloat16)
+    elif variant == "misaligned_h":
+        ht = misaligned(ht)
+    cd = torch.bfloat16 if variant == "bf16_compute" else torch.float32
+    args = [torch.as_tensor(a, device=cuda) for a in (tu.src, tu.dstl, tu.w, tu.blkl, tu.blk0)]
+    meta = (tu.num_blocks_padded, tu.blocks_per_chunk, tu.block_rows, tu.tile_edges)
+    P.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    got = P.spmm_sum_tiled_uniform(ht, *args, *meta, num_nodes, compute_dtype=cd)
+    rise = torch.cuda.memory_stats()["requested_bytes.all.peak"] - before
+    torch.cuda.synchronize()
+    counted = "spmm_tiled[bf16]" if cd == torch.bfloat16 else "spmm_tiled"
+    assert {k: v for k, v in P.launch_counts().items() if v} == {counted: 1}
+    assert got.shape == (num_nodes, d) and got.dtype == torch.float32
+    copy = ht.numel() * 2 if cd == torch.bfloat16 and ht.dtype == torch.float32 else 0
+    assert got.numel() * 4 + copy <= rise <= got.numel() * 4 + copy + 4096, rise
+    spmm_close(got, P.seg_mm_plain(ht, *args, *meta, compute_dtype=cd)[:num_nodes], 1e-5)
+
+
 def test_spmm_tile_partials_kernel_matches_plain(cuda):
     from falcon_ttdforgnns_torch.ops import spmm_tiled as P
     n, e, NR, E_t = 1000, 9000, 32, 64
@@ -562,8 +665,9 @@ def test_spmm_wrappers_raise_on_bad_input(cuda):
         P.spmm_sum_tiled_uniform(ht, args[0].cpu(), *args[1:], *meta)
     with pytest.raises(TypeError):
         P.spmm_sum_tiled_uniform(ht, args[0].long(), *args[1:], *meta)
-    with pytest.raises(ValueError):  # block ids out of order
-        P.spmm_sum_tiled_uniform(ht, *args[:3], args[3].flip(1).contiguous(), args[4], *meta)
+    assert args[4].shape[0] > 1
+    with pytest.raises(ValueError):  # chunks out of block order (the seam rule needs it)
+        P.spmm_sum_tiled_uniform(ht, *args[:4], args[4].flip(0).contiguous(), *meta)
     with pytest.raises(ValueError):
         B.window_gather(ht, torch.zeros(1, dtype=torch.int32, device=cuda),
                         torch.zeros(64, dtype=torch.int64, device=cuda),

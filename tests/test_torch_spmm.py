@@ -3,10 +3,10 @@
 * The tilers (``ops/spmm_tiled.py`` flat and uniform, ``ops/spmm_blocked.py``
   window tiles and the forward/backward pair of ``build_blocked_spmm``) are
   numpy copies: every array, chunk list and size must be bit-identical.
-* The plain versions of the three kernels (B7 ``spmm_seg_mm``, B8
-  ``spmm_tile_mm``, B9 ``spmm_window_gather``) against the Pallas kernels in
-  interpret mode.  f32: rtol 1e-5 with an absolute floor of 1e-5 times the
-  largest output (the one-hot matmul and index_add_ sum in other orders);
+* The plain versions of the kernels (B7 and B8 ``spmm_tile_sum``, B9
+  ``spmm_window_gather``) against the Pallas kernels in interpret mode.
+  f32: rtol 1e-5 with an absolute floor of 1e-5 times the largest output
+  (the one-hot matmul and index_add_ sum in other orders);
   hub rows (thousands of terms in one row) 1e-4 of the largest.  The bf16
   compute: both sides round h and w to bf16, so the products are exact and
   only the f32 sums differ: the same tolerance.  The window gather is one
@@ -208,6 +208,46 @@ def test_uniform_plain_matches_pallas_interpret(name):
                                    t(tu.blkl), t(tu.blk0), tu.num_blocks_padded,
                                    tu.blocks_per_chunk, NR, E_t, n)
     close(out.numpy(), ref, tol)
+
+
+def seam_tiling(tu, n, rng):
+    """A uniform tiling with real slots (w != 0, src and dstl in range) put
+    in the pad tiles of every chunk but the last: tiles whose block the next
+    chunk also covers.  The reference's scan writes the next chunk's rows
+    over those blocks, so these slots must add nothing."""
+    src, dstl, w = tu.src.copy(), tu.dstl.copy(), tu.w.copy()
+    E_t, filled = tu.tile_edges, 0
+    for c in range(tu.blk0.shape[0] - 1):
+        for t in np.nonzero(tu.blk0[c] + tu.blkl[c] >= tu.blk0[c + 1])[0]:
+            sl = slice(t * E_t, (t + 1) * E_t)
+            src[c, sl] = rng.integers(0, n, E_t)
+            dstl[c, sl] = rng.integers(0, tu.block_rows, E_t)
+            w[c, sl] = rng.normal(size=E_t)
+            filled += 1
+    assert filled > 0
+    return src, dstl, w
+
+
+def test_uniform_seam_slots_are_overwritten_as_in_pallas():
+    """B7's hostile case: w != 0 slots in blocks that the next chunk
+    covers (a skewed in-degree, so chunks cover 1-6 blocks and pad the
+    rest).  seg_mm_plain overwrites them as the reference's scan does."""
+    rng = np.random.default_rng(6802)
+    src = rng.integers(0, 800, 6000).astype(np.int32)
+    dst = np.sort((rng.random(6000) ** 2 * 800).astype(np.int32))
+    h = rng.normal(size=(800, 32)).astype(np.float32)
+    tu = P.build_spmm_tiles_uniform(src, dst, 800, block_rows=32, tile_edges=64,
+                                    tiles_per_chunk=16)
+    s, dl, w = seam_tiling(tu, 800, rng)
+    ref = JP.spmm_sum_tiled_uniform(
+        jnp.asarray(h), jnp.asarray(s), jnp.asarray(dl), jnp.asarray(w), jnp.asarray(tu.blkl),
+        jnp.asarray(tu.first), jnp.asarray(tu.blk0), tu.num_blocks_padded,
+        tu.blocks_per_chunk, 32, 64, 800, interpret=True)
+    args = (t(tu.blkl), t(tu.blk0), tu.num_blocks_padded, tu.blocks_per_chunk, 32, 64, 800)
+    out = P.spmm_sum_tiled_uniform(torch.tensor(h), t(s), t(dl), t(w), *args)
+    close(out.numpy(), ref, 1e-5)
+    clean = P.spmm_sum_tiled_uniform(torch.tensor(h), t(tu.src), t(tu.dstl), t(tu.w), *args)
+    close(out.numpy(), clean.numpy(), 1e-6)  # the seam slots changed nothing
 
 
 def test_uniform_bf16_compute_matches_pallas_interpret():

@@ -187,6 +187,88 @@ def test_grads_match_pallas(ndim):
         assert_close(a.numpy(), c, rtol=1e-4)
 
 
+def grouped_ids(rng, kind, n):
+    """The id draws of the grouped backward's cases: (ids, chunk)."""
+    if kind == "runs_and_duplicates":  # long runs of few ids, shuffled among singles
+        ids = np.concatenate([np.repeat(rng.integers(0, n, 6), rng.integers(5, 40, 6)),
+                              rng.integers(0, n, 120)])
+        return rng.permutation(ids), 16
+    if kind == "run_past_chunks":  # one id's run spans several chunks of 16
+        return rng.permutation(np.concatenate([np.full(70, n // 3), rng.integers(0, n, 60)])), 16
+    if kind == "one_id":  # a single id over the whole batch
+        return np.full(200, n - 1), 64
+    return np.array([n // 2]), 64  # B = 1
+
+
+def pallas_grads_padded(shapes, cores, ids, g, block=128):
+    """tt_grads_pallas (interpret mode, f32) on B padded to its block with
+    zero d_out rows, which add nothing."""
+    pad = -len(ids) % block
+    ids = np.concatenate([ids, np.zeros(pad, ids.dtype)])
+    g = np.concatenate([g, np.zeros((pad, g.shape[1]), g.dtype)])
+    return tt_grads_pallas(shapes, jax_cores(cores), jnp.asarray(ids), jnp.asarray(g),
+                           block=block, compute_dtype=jnp.float32)
+
+
+@pytest.mark.parametrize("kind", ["runs_and_duplicates", "run_past_chunks", "one_id", "b1"])
+@pytest.mark.parametrize("ndim", [2, 3, 4])
+def test_grouped_grads_match_pallas(ndim, kind):
+    """The card kernel's order in plain PyTorch (tt_grads_grouped_plain: the
+    wrapper's sort, equal ids summed, one flush per prefix within a chunk)
+    against tt_core_grads and the Pallas backward: rtol 1e-5 with a floor
+    of 1e-5 of each core's largest value.  Both sum the same f32 products
+    in other orders over at most a few hundred terms, so they differ by
+    about sqrt(B) * 2^-24 of the sum (~1e-6), not by the 1e-4 the card's
+    atomics are allowed."""
+    shapes, cores = case_for(ndim)
+    rng = np.random.default_rng(80 + ndim)
+    ids, chunk = grouped_ids(rng, kind, shapes.num_embeddings)
+    ids = ids.astype(np.int32)
+    g = rng.normal(size=(len(ids), shapes.embedding_dim)).astype(np.float32)
+    ours = tt_kernels.tt_grads_grouped_plain(shapes, torch_cores(cores), torch.tensor(ids),
+                                             torch.tensor(g), chunk)
+    counts = tt_kernels.grouped_counts(shapes, torch.tensor(ids), chunk)
+    if kind in ("run_past_chunks", "one_id"):  # a run that chunk starts split
+        assert counts["pieces"] > counts["distinct"]
+    want = pallas_grads_padded(shapes, cores, ids, g)
+    ref = jax_core_grads(shapes, jax_cores(cores), jnp.asarray(ids), jnp.asarray(g),
+                         dedup=True)
+    for a, b, c in zip(ours, want, ref):
+        assert a.dtype == torch.float32
+        assert_close(a.numpy(), b, rtol=1e-5)
+        assert_close(a.numpy(), c, rtol=1e-5)
+
+
+@pytest.mark.parametrize("ndim", [2, 3, 4])
+def test_empty_batch_plain_versions(ndim):
+    """No ids: the plain lookup gives (0, D) rows and the plain gradients
+    (both orders) zeros, as the card's wrappers do without a launch."""
+    shapes, cores = case_for(ndim)
+    tc = torch_cores(cores)
+    ids = torch.zeros(0, dtype=torch.int32)
+    assert tuple(tt_fwd(shapes, tc, ids).shape) == (0, shapes.embedding_dim)
+    g = torch.zeros(0, shapes.embedding_dim)
+    for grads in (tt_grads(shapes, tc, ids, g),
+                  tt_kernels.tt_grads_grouped_plain(shapes, tc, ids, g)):
+        for k, a in enumerate(grads):
+            assert a.shape == shapes.core_shape(k) and not a.any()
+
+
+def test_grouped_walk_counts():
+    """The walk's pieces and segments on hand-made sorted ids: a piece is
+    one id within one chunk, a segment one prefix (id // p_last) within one
+    chunk."""
+    shapes, _ = case_for(3)  # p_last 14
+    sid = torch.tensor([3, 3, 5, 14, 14, 14, 15, 29, 29, 29], dtype=torch.int32)
+    piece, segment = tt_kernels.grouped_walk(shapes, sid, chunk=4)
+    assert piece.tolist() == [1, 0, 1, 1, 1, 0, 1, 1, 1, 0]
+    assert segment.tolist() == [1, 0, 0, 1, 1, 0, 0, 1, 1, 0]
+    counts = tt_kernels.grouped_counts(shapes, sid.flip(0), chunk=4)
+    assert counts == {"ids": 10, "distinct": 5, "prefix_runs": 3, "pieces": 7,
+                      "segments": 5}
+    assert tt_kernels.grouped_counts(shapes, sid[:0])["pieces"] == 0
+
+
 @pytest.mark.parametrize("ndim", [2, 3, 4])
 def test_ttlookup_autograd_backward(ndim):
     """TTLookup's backward (tt_grads) on the CPU equals the Pallas grads."""

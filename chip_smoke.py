@@ -15,9 +15,11 @@
    exists, the PyTorch library call for the same function; for the
    launch-sized updates (Adam, SGD, adagrad) also the device time per call
    from torch.profiler beside the loop time, for kernel and library call;
-   for tt_grads the sort of its ids apart, the distinct ids and prefix
-   runs that set its bound and the pieces and segments of its walk; times
-   the host's two ways to read the current stream;
+   for tt_fwd and tt_grads the sort of their ids apart, the distinct ids
+   and prefix runs that set their bounds and the pieces and segments of
+   their walks; holds the lookup's three stores against their plain
+   versions at 2 and 4 cores on ids whose hot id spans many chunks of 1 and
+   3 positions; times the host's two ways to read the current stream;
 4. checks the train step on the card against the same step on the CPU
    (plain versions) on a tiny graph, for f32 --sparse, f32 without it,
    --bf16 --sparse, --bf16 --bf16-sr --sparse and each --tt-optimizer, and
@@ -28,12 +30,15 @@
    after, then evaluate(); the blocked losses are held to the xla ones;
 6. trains the full-width SAGE 3x256 on the full-size hard-ogbn-products
    graph: 5 steps of the main path, --bf16 --sparse (bf16 kernel I/O,
-   fused Adam), each step's tt_grads walk counts and bound, with the launch
-   counters zeroed before and read after (and the update's argument-cache
-   misses: at most the first step's); a profiled window of 3 steps (device
-   time by kernel, tt_grads with its sort); 5 steps sampled on the host as
-   train_epoch does; tt_grads on those 5 steps' ids at 32, 64 and 128
-   sorted positions a warp; then, each with the counters zeroed
+   fused Adam), each step's walk counts and the bounds of tt_fwd and
+   tt_grads, and the lookup's three stores held against their plain
+   versions on each step's ids; the steps with the launch counters zeroed
+   before and read after (and the update's argument-cache misses: at most
+   the first step's; the sorts: one a step); a profiled window of 3 steps
+   (device time by kernel, one aten::sort a step, tt_fwd and tt_grads
+   beside it); 5 steps sampled on the host as train_epoch does; tt_fwd[bf16]
+   and tt_grads[bf16] on those 5 steps' ids at 32, 64 and 128 sorted
+   positions a warp; then, each with the counters zeroed
    before and read after, 2 steps each of --bf16 --bf16-sr --sparse and
    --sparse --tt-optimizer sgd|adagrad|rowwise_adagrad, 2 f32 --sparse
    steps, 2 f32 steps without --sparse (TTLookup's backward kernel), and
@@ -145,9 +150,9 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 def device_ops(fn, reps: int = 1) -> tuple:
     """({name: (calls, device us)} of every kernel and memset that `reps`
     calls of fn() ran on the card (torch.profiler), the wall time of those
-    calls in us, and {host op: device us of the kernels it launched} (the
-    kernels of a library call such as aten::sort, whose names are not the
-    port's)."""
+    calls in us, and {host op: (calls, device us of the kernels it
+    launched)} (the kernels of a library call such as aten::sort, whose
+    names are not the port's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -161,7 +166,7 @@ def device_ops(fn, reps: int = 1) -> tuple:
     on_card = [str(getattr(e, "device_type", "")).endswith("CUDA") for e in events]
     return ({e.key: (e.count, getattr(e, "self_device_time_total", 0))
              for e, card in zip(events, on_card) if card}, wall_us,
-            {e.key: getattr(e, "device_time_total", 0)
+            {e.key: (e.count, getattr(e, "device_time_total", 0))
              for e, card in zip(events, on_card) if not card})
 
 
@@ -265,19 +270,45 @@ def chain_macs(shapes) -> tuple:
     return fwd, bwd
 
 
-def grouped_macs(shapes, per_id: int, per_prefix: int) -> int:
-    """The multiply-adds of the grouped backward (the note in
-    csrc/tt_kernels.cu): per id 2 L_{T-1} r_{T-1} q_{T-1} (the last core's
-    gradient row and the chain gradient), per prefix
-    3 sum_{k=1}^{T-2} L_k r_k q_k r_{k+1} (P_{T-2} recomputed, then the
-    backward through cores T-2..1).  With (distinct ids, prefix runs) the
-    work the function needs; with (pieces, segments) the work tt_grads'
-    walk does, the chunk starts' splits included.  Exact at 3 cores; at 4
-    an upper bound (a prefix that keeps d_1 keeps P_1)."""
+def level_macs(shapes) -> tuple:
+    """(the last level, P_{T-2}) in multiply-adds: L_{T-1} r_{T-1} q_{T-1}
+    and sum_{k=1}^{T-2} L_k r_k q_k r_{k+1} (1,600 and 6,400 at products)."""
     fr, q, T = shapes.full_ranks, shapes.q_shapes, shapes.ndim
     L = [int(np.prod(q[:k])) for k in range(T + 1)]
-    seg = sum(L[k] * fr[k] * q[k] * fr[k + 1] for k in range(1, T - 1))
-    return per_id * 2 * L[T - 1] * fr[T - 1] * q[T - 1] + per_prefix * 3 * seg
+    return (L[T - 1] * fr[T - 1] * q[T - 1],
+            sum(L[k] * fr[k] * q[k] * fr[k + 1] for k in range(1, T - 1)))
+
+
+def grouped_macs(shapes, per_id: int, per_prefix: int) -> int:
+    """The multiply-adds of the grouped backward (the note in
+    csrc/tt_kernels.cu): per id twice the last level (the last core's
+    gradient row and the chain gradient), per prefix three times P_{T-2}'s
+    (P_{T-2} recomputed, then the backward through cores T-2..1).  With
+    (distinct ids, prefix runs) the work the function needs; with (pieces,
+    segments) the work tt_grads' walk does, the chunk starts' splits
+    included.  Exact at 3 cores; at 4 an upper bound (a prefix that keeps
+    d_1 keeps P_1)."""
+    last, prefix = level_macs(shapes)
+    return per_id * 2 * last + per_prefix * 3 * prefix
+
+
+def fwd_macs(shapes, per_id: int, per_prefix: int) -> int:
+    """The multiply-adds of the grouped lookup (the note in
+    csrc/tt_kernels.cu): the last level per id, P_{T-2} per prefix; with
+    (distinct ids, prefix runs) what the function needs, with (pieces,
+    segments) what tt_fwd's walk does.  At 4 cores an upper bound, as
+    grouped_macs."""
+    last, prefix = level_macs(shapes)
+    return per_id * last + per_prefix * prefix
+
+
+def fwd_bound(shapes, counts: dict, out_size: int) -> tuple:
+    """tt_fwd's bound for these ids: the ids (4 B each) read and the output
+    (out_size bytes a value) written once, the cores read once; the
+    multiply-adds that the distinct ids and prefix runs need (fwd_macs)."""
+    B, D = counts["ids"], shapes.embedding_dim
+    return bound_ms(4 * B + out_size * B * D + 4 * shapes.num_tt_params,
+                    2 * fwd_macs(shapes, counts["distinct"], counts["prefix_runs"]))
 
 
 def grads_bound(shapes, counts: dict, d_size: int) -> tuple:
@@ -289,13 +320,24 @@ def grads_bound(shapes, counts: dict, d_size: int) -> tuple:
                     2 * grouped_macs(shapes, counts["distinct"], counts["prefix_runs"]))
 
 
-def walk_line(label: str, shapes, counts: dict) -> str:
-    need = grouped_macs(shapes, counts["distinct"], counts["prefix_runs"])
-    walk = grouped_macs(shapes, counts["pieces"], counts["segments"])
+def walk_line(label: str, shapes, counts: dict, fwd_counts: dict) -> str:
+    """The work of tt_grads' walk (counts, at GRADS_CHUNK) and of tt_fwd's
+    (fwd_counts, at FWD_CHUNK), each beside what the function needs."""
+    parts = []
+    for name, macs, c in (("tt_fwd", fwd_macs, fwd_counts), ("tt_grads", grouped_macs, counts)):
+        need = macs(shapes, c["distinct"], c["prefix_runs"])
+        walk = macs(shapes, c["pieces"], c["segments"])
+        parts.append(f"{name} needs {need / 1e9:.4f} GMAC, its walk {c['pieces']} pieces, "
+                     f"{c['segments']} segments, {walk / 1e9:.4f} GMAC")
     return (f"{label}: {counts['ids']} ids, {counts['distinct']} distinct, "
-            f"{counts['prefix_runs']} prefix runs, {need / 1e9:.4f} GMAC needed; tt_grads' "
-            f"walk: {counts['pieces']} pieces, {counts['segments']} segments, "
-            f"{walk / 1e9:.4f} GMAC")
+            f"{counts['prefix_runs']} prefix runs; " + "; ".join(parts))
+
+
+def walk_counts(K, shapes, ids) -> tuple:
+    """grouped_counts at GRADS_CHUNK and at FWD_CHUNK."""
+    counts = K.grouped_counts(shapes, ids)
+    return counts, (counts if K.FWD_CHUNK == K.GRADS_CHUNK
+                    else K.grouped_counts(shapes, ids, K.FWD_CHUNK))
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple:
@@ -303,23 +345,29 @@ def bound_ms(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fwd_checks(K, shapes, cores, ids, seed, label: str = "", **kw) -> dict:
+    """The lookup's three stores (tt_fwd f32 to TOL, tt_fwd[bf16] and
+    tt_fwd_sr bit for bit, check_bf16) against their plain versions on these
+    ids; kw (chunk, order) go to the kernels.  {name: max_abs_err}."""
+    import torch
+    err = {"tt_fwd": check(f"tt_fwd{label}", [("out", K.tt_fwd(shapes, cores, ids, **kw),
+                                               K.tt_fwd_plain(shapes, cores, ids), "tt_fwd")])}
+    err["tt_fwd[bf16]"] = check_bf16(
+        f"tt_fwd[bf16]{label}", K.tt_fwd(shapes, cores, ids, torch.bfloat16, **kw),
+        K.tt_fwd_plain(shapes, cores, ids, torch.bfloat16))
+    err["tt_fwd_sr"] = check_bf16(
+        f"tt_fwd_sr{label}", K.tt_fwd_sr(shapes, cores, ids, seed, **kw),
+        K.tt_fwd_sr_plain(shapes, cores, ids, seed))
+    return err
+
+
 def kernel_checks(K, shapes, cores, ids, d_out, full: bool):
     """Each kernel against its plain version on the same inputs; with
     `full`, also the times.  Returns per-kernel results."""
     import torch
     dev = ids.device
-    res = {}
     seed = torch.tensor(20261016, dtype=torch.int32, device=dev)
-    out = K.tt_fwd(shapes, cores, ids)
-    res["tt_fwd"] = {"max_abs_err": check(
-        "tt_fwd", [("out", out, K.tt_fwd_plain(shapes, cores, ids), "tt_fwd")])}
-    del out
-    res["tt_fwd[bf16]"] = {"max_abs_err": check_bf16(
-        "tt_fwd[bf16]", K.tt_fwd(shapes, cores, ids, torch.bfloat16),
-        K.tt_fwd_plain(shapes, cores, ids, torch.bfloat16))}
-    res["tt_fwd_sr"] = {"max_abs_err": check_bf16(
-        "tt_fwd_sr", K.tt_fwd_sr(shapes, cores, ids, seed),
-        K.tt_fwd_sr_plain(shapes, cores, ids, seed))}
+    res = {name: {"max_abs_err": e} for name, e in fwd_checks(K, shapes, cores, ids, seed).items()}
     grads = K.tt_grads(shapes, cores, ids, d_out)
     want = K.tt_grads_plain(shapes, cores, ids, d_out)
     res["tt_grads"] = {"max_abs_err": check(
@@ -381,45 +429,50 @@ def kernel_checks(K, shapes, cores, ids, d_out, full: bool):
     rows = sum(shapes.p_shapes)
     macs_f, macs_b = chain_macs(shapes)
 
-    def timed(name, kernel, plain, library, nbytes, flops, reps=10, plain_reps=3,
-              on_device=False):
+    def timed(name, kernel, plain, library, bound, reps=10, plain_reps=3, on_device=False):
         """Loop ms of kernel, plain version and library call (CUDA events
         around `reps` calls back to back); with `on_device`, also the
-        device ms per call of kernel and library call (torch.profiler)."""
+        device ms per call of kernel and library call (torch.profiler).
+        `bound`: bound_ms's (ms, by) for this work."""
         r = res[name]
         r.update(ms=cuda_ms(kernel, reps), plain_ms=cuda_ms(plain, plain_reps),
                  library_ms=None if library is None else cuda_ms(library, reps))
         if on_device:
             r.update(device_ms=device_ms(kernel),
                      library_device_ms=None if library is None else device_ms(library))
-        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops)
+        r["bound_ms"], r["bound_by"] = bound
 
-    timed("tt_fwd", lambda: K.tt_fwd(shapes, cores, ids),
-          lambda: K.tt_fwd_plain(shapes, cores, ids), None,
-          4 * (B + n_tt + B * D), 2 * macs_f * B)
-    timed("tt_fwd[bf16]", lambda: K.tt_fwd(shapes, cores, ids, torch.bfloat16),
-          lambda: K.tt_fwd_plain(shapes, cores, ids, torch.bfloat16), None,
-          4 * (B + n_tt) + 2 * B * D, 2 * macs_f * B)
-    # the ~12 integer operations of the hash per element are not counted
-    timed("tt_fwd_sr", lambda: K.tt_fwd_sr(shapes, cores, ids, seed),
-          lambda: K.tt_fwd_sr_plain(shapes, cores, ids, seed), None,
-          4 * (B + n_tt + 1) + 2 * B * D, 2 * macs_f * B)
-    # the bound from the multiply-adds that these ids' distinct ids and
-    # prefix runs need (the atomics run in L2, not on the FMA pipes); the
-    # log also gives the bound of the reference's per-id chain (22,400
-    # multiply-adds an id at the products shapes), work the kernel no
-    # longer does
-    counts = K.grouped_counts(shapes, ids)
-    log("  " + walk_line("the draw", shapes, counts))
+    # tt_fwd and tt_grads: the bound from the multiply-adds that these ids'
+    # distinct ids and prefix runs need (tt_grads' atomics run in L2, not on
+    # the FMA pipes); the call's time includes the sort of the ids, timed
+    # apart too, and tt_fwd's kernel is also timed with the order given.
+    # The log gives the bound of the reference's per-id chain as well
+    # (8,000 and 22,400 multiply-adds an id at the products shapes), work
+    # the kernels no longer do
+    counts, fwd_counts = walk_counts(K, shapes, ids)
+    log("  " + walk_line("the draw", shapes, counts, fwd_counts))
     sort_ms = cuda_ms(lambda: K.grouped_order(ids), 10)
+    order = K.grouped_order(ids)
     chain_bound = {}
+    # the ~12 integer operations of the SR hash per element are not counted
+    for name, call, plain, size in (
+            ("tt_fwd", lambda **kw: K.tt_fwd(shapes, cores, ids, **kw),
+             lambda: K.tt_fwd_plain(shapes, cores, ids), 4),
+            ("tt_fwd[bf16]", lambda **kw: K.tt_fwd(shapes, cores, ids, torch.bfloat16, **kw),
+             lambda: K.tt_fwd_plain(shapes, cores, ids, torch.bfloat16), 2),
+            ("tt_fwd_sr", lambda **kw: K.tt_fwd_sr(shapes, cores, ids, seed, **kw),
+             lambda: K.tt_fwd_sr_plain(shapes, cores, ids, seed), 2)):
+        timed(name, call, plain, None, fwd_bound(shapes, fwd_counts, size))
+        res[name].update(sort_ms=sort_ms,
+                         kernel_ms=cuda_ms(lambda call=call: call(order=order), 10))
+        chain_bound[name] = bound_ms(4 * (B + n_tt) + size * B * D, 2 * macs_f * B)[0]
     for name, d, size in (("tt_grads", d_out, 4), ("tt_grads[bf16]", d_bf16, 2)):
-        nbytes = 4 * B + size * B * D + 8 * n_tt
         timed(name, lambda d=d: K.tt_grads(shapes, cores, ids, d),
-              lambda d=d: K.tt_grads_plain(shapes, cores, ids, d), None, nbytes,
-              2 * grouped_macs(shapes, counts["distinct"], counts["prefix_runs"]))
+              lambda d=d: K.tt_grads_plain(shapes, cores, ids, d), None,
+              grads_bound(shapes, counts, size))
         res[name]["sort_ms"] = sort_ms
-        chain_bound[name] = bound_ms(nbytes, 2 * macs_b * B)[0]
+        chain_bound[name] = bound_ms(4 * B + size * B * D + 8 * n_tt, 2 * macs_b * B)[0]
+    del order
 
     def params_with(gs):
         ps = [torch.nn.Parameter(c.clone()) for c in cores]
@@ -431,22 +484,23 @@ def kernel_checks(K, shapes, cores, ids, d_out, full: bool):
     fused = torch.optim.Adam(params_with(grads), lr=LR, betas=(b1, b2), eps=eps, fused=True)
     timed("tt_adam_apply", lambda: K.tt_adam_apply(*st, grads, scal, b1, b2, eps),
           lambda: K.tt_adam_plain(*st_plain, grads, scal, b1, b2, eps), fused.step,
-          4 * 7 * n_tt + 12, 12 * n_tt, reps=50, plain_reps=20, on_device=True)
+          bound_ms(4 * 7 * n_tt + 12, 12 * n_tt), reps=50, plain_reps=20, on_device=True)
     c_k, c_p, c_l = ([c.clone() for c in cores] for _ in range(3))
     timed("tt_sgd_apply", lambda: K.tt_sgd_apply(c_k, grads, LR),
           lambda: K.tt_sgd_plain(c_p, grads, LR),
           lambda: torch._foreach_add_(c_l, grads, alpha=-LR),
-          4 * 3 * n_tt, 2 * n_tt, reps=50, plain_reps=20, on_device=True)
+          bound_ms(4 * 3 * n_tt, 2 * n_tt), reps=50, plain_reps=20, on_device=True)
     ag_k, ag_p = acc_state(False), acc_state(False)
     adagrad = torch.optim.Adagrad(params_with(grads), lr=LR, eps=1e-10, foreach=True)
     timed("tt_adagrad_apply", lambda: K.tt_adagrad_apply(*ag_k, grads, LR, 1e-10),
           lambda: K.tt_adagrad_plain(*ag_p, grads, LR, 1e-10), adagrad.step,
-          4 * 5 * n_tt, 7 * n_tt, reps=50, plain_reps=20, on_device=True)
+          bound_ms(4 * 5 * n_tt, 7 * n_tt), reps=50, plain_reps=20, on_device=True)
     rw_k, rw_p = acc_state(True), acc_state(True)
     timed("tt_adagrad_apply[rowwise]",
           lambda: K.tt_adagrad_apply(*rw_k, grads, LR, 1e-8, True),
           lambda: K.tt_adagrad_plain(*rw_p, grads, LR, 1e-8, True), None,
-          4 * 3 * n_tt + 4 * 2 * rows, 6 * n_tt, reps=50, plain_reps=20, on_device=True)
+          bound_ms(4 * 3 * n_tt + 4 * 2 * rows, 6 * n_tt), reps=50, plain_reps=20,
+          on_device=True)
 
     def ms4(x, absent):
         return absent if x is None else f"{x:.4f} ms"
@@ -458,6 +512,8 @@ def kernel_checks(K, shapes, cores, ids, d_out, full: bool):
             lib_dev = ms4(r["library_device_ms"],
                           "none" if r["library_ms"] is None else "not measured")
             dev = f"; on the device {ms4(r['device_ms'], 'not measured')}, library {lib_dev}"
+        if "kernel_ms" in r:
+            dev += f"; with the order given {r['kernel_ms']:.4f} ms"
         if name in chain_bound:
             dev += (f"; of it the sort {r['sort_ms']:.4f} ms; the per-id chain's bound "
                     f"{chain_bound[name]:.4f} ms")
@@ -486,6 +542,7 @@ def kernel_phase(K, dev):
         f"{public_us:.3f} us, the raw handle the wrappers take {raw_us:.3f} us")
     log(f"kernels at the products shapes, {B} zipf({ZIPF_A}) ids:")
     res = kernel_checks(K, shapes, cores, ids, d_out, full=True)
+    seed = torch.tensor(7, dtype=torch.int32, device=dev)
     for small in (TTShapes(256, 64, (16, 16), (8, 8), (12,)),
                   TTShapes(1296, 36, (6, 6, 6, 6), (2, 3, 3, 2), (6, 6, 6))):
         log(f"kernels at {small.ndim} cores, p={small.p_shapes}, 1001 ids:")
@@ -493,6 +550,13 @@ def kernel_phase(K, dev):
         i = torch.tensor(rng.integers(0, small.num_embeddings, 1001).astype(np.int32), device=dev)
         g = torch.randn((1001, small.embedding_dim), generator=gen, device=dev)
         kernel_checks(K, small, c, i, g, full=False)
+        # a hot id, 400 of the 1001, spans many chunks of 1 and 3 positions
+        hot = torch.tensor(rng.permutation(np.concatenate([
+            np.full(400, small.num_embeddings // 2),
+            rng.integers(0, small.num_embeddings, 601)])).astype(np.int32), device=dev)
+        for chunk in (1, 3):
+            log(f"  the lookup on a hot id (400 of 1001 ids), chunk {chunk}:")
+            fwd_checks(K, small, c, hot, seed, f" chunk {chunk}", chunk=chunk)
     return res
 
 
@@ -593,18 +657,23 @@ def counted_steps(trainer, batches, label, must_launch):
     after; raise unless each kernel in `must_launch` launched.  The update
     wrapper validates its cores' and optimizer state's argument set anew
     (an argument-cache miss) at most once, on the first step: raise if it
-    did so more often.  Returns the counts."""
+    did so more often.  Each step does one TT lookup and sorts its ids
+    once, for tt_fwd and tt_grads alike: raise on another count of sorts.
+    Returns the counts."""
     from falcon_ttdforgnns_torch.ops import tt_kernels
     reset_counts()
     train_steps(trainer, batches, label)
     counts = launched()
     updates = sum(counts.get(k, 0) for k in UPDATES)
     misses = tt_kernels.arg_cache_misses()
+    sorts = tt_kernels.sort_count()
     log(f"  launches: {counts}; update argument sets validated anew: {misses} of "
-        f"{updates} update launches")
+        f"{updates} update launches; sorts of the ids: {sorts} in {len(batches)} steps")
     missing = [k for k in must_launch if not counts.get(k)]
     if missing:
         raise AssertionError(f"{label}: {missing} never launched: {counts}")
+    if sorts != len(batches):
+        raise AssertionError(f"{label}: {sorts} sorts of the ids in {len(batches)} steps")
     if misses > 1:
         raise AssertionError(f"{label}: the update's arguments were validated anew {misses} "
                              f"times in {updates} launches: the argument cache misses")
@@ -635,35 +704,47 @@ def checked_evaluate(trainer, label, must_launch=("tt_fwd",)):
 
 
 def chunk_sweep(K, shapes, id_batches, dev) -> None:
-    """tt_grads with a bf16 d_out, as on the main path, on the main path's
-    own ids at 32, 64 and 128 sorted positions a warp (GRADS_CHUNK is
-    chosen from these): loop ms per call of each batch, the chunks taking
-    turns within a batch, and each chunk's pieces and segments."""
+    """tt_fwd storing bf16 and tt_grads with a bf16 d_out, as on the main
+    path, on the main path's own ids at 32, 64 and 128 sorted positions a
+    warp (FWD_CHUNK and GRADS_CHUNK are chosen from these), each given the
+    step's sort as the trainer gives it (the sort is not timed): loop ms
+    per call of each batch, the chunks taking turns within a batch, and
+    each chunk's pieces and segments."""
     import torch
     from falcon_ttdforgnns_torch.ops import tt_init
     cores = [torch.tensor(c, device=dev)
              for c in tt_init.init_tt_cores(shapes, "approx-normal", 0)]
     gen = torch.Generator(device=dev).manual_seed(1)
     chunks = (32, 64, 128)
-    times = {c: [] for c in chunks}
+    times = {(k, c): [] for k in ("tt_fwd[bf16]", "tt_grads[bf16]") for c in chunks}
     for ids in id_batches:
         d = torch.randn((ids.shape[0], shapes.embedding_dim), generator=gen,
                         device=dev).to(torch.bfloat16)
+        order = K.grouped_order(ids)
         for c in chunks:
-            times[c].append(cuda_ms(lambda: K.tt_grads(shapes, cores, ids, d, chunk=c), 10))
+            times["tt_fwd[bf16]", c].append(cuda_ms(lambda: K.tt_fwd(
+                shapes, cores, ids, torch.bfloat16, order=order, chunk=c), 10))
+            times["tt_grads[bf16]", c].append(cuda_ms(lambda: K.tt_grads(
+                shapes, cores, ids, d, chunk=c, order=order), 10))
     for c in chunks:
         walk = K.grouped_counts(shapes, id_batches[0], c)
-        log(f"  tt_grads[bf16] at chunk {c}{' (GRADS_CHUNK)' if c == K.GRADS_CHUNK else ''}: "
-            f"{', '.join(f'{t:.4f}' for t in times[c])} ms on the {len(id_batches)} steps' "
-            f"ids (step 0: {walk['pieces']} pieces, {walk['segments']} segments)")
+        for name, default in (("tt_fwd[bf16]", K.FWD_CHUNK), ("tt_grads[bf16]", K.GRADS_CHUNK)):
+            log(f"  {name} at chunk {c}{' (the default)' if c == default else ''}: "
+                f"{', '.join(f'{t:.4f}' for t in times[name, c])} ms on the "
+                f"{len(id_batches)} steps' ids, the sort not timed (step 0: "
+                f"{walk['pieces']} pieces, {walk['segments']} segments)")
 
 
-def profile_steps(trainer, batches) -> None:
+def profile_steps(trainer, batches, K) -> None:
     """Where a --sparse step's device time goes: torch.profiler over a few
     steps, kernels ranked by device time, and the device's busy share of
     the window's wall time.  A window in which the profiler missed a
     record of the TT kernels (one launch of each per step) is taken again,
-    up to three times; after the third the breakdown is not measured."""
+    up to three times; after the third the breakdown is not measured.
+    Raises unless the window sorted once a step: its aten::sort records
+    against those of one grouped_order call, profiled after the window so
+    that the window is the process's first profiler session (PERF.md §7)."""
+    import torch
     n = len(batches)
 
     def steps():
@@ -680,17 +761,26 @@ def profile_steps(trainer, batches) -> None:
     ops, wall_us, under = complete_profile(steps, complete, f"{n} main-path steps")
     if ops is None:
         return
+    ids = torch.as_tensor(batches[0].all_nodes.astype(np.int32), device=trainer.device)
+    _, _, one = device_ops(lambda: K.grouped_order(ids))
+    per_sort = one.get("aten::sort", (0, 0))[0]
+    sorts = under.get("aten::sort", (0, 0))[0]
+    log(f"  aten::sort records: {sorts} in {n} steps, {per_sort} for one grouped_order call")
+    if per_sort == 0 or sorts != n * per_sort:
+        raise AssertionError(f"{n} main-path steps made {sorts} aten::sort records, "
+                             f"one sort a step makes {per_sort}")
     rows = [(us, key, count) for key, (count, us) in ops.items()]
     busy_us = sum(r[0] for r in rows)
     log(f"  profiled {n} steps: {wall_us / n / 1e3:.1f} ms per step (profiler on), "
         f"device busy {busy_us / n / 1e3:.1f} ms per step = "
         f"{busy_us / wall_us:.1%} of wall")
-    # tt_grads' time on the path is its kernel and the sort of its ids (the
-    # step sorts nothing else on the card)
-    kernel_us = sum(us for key, (_, us) in ops.items() if "tt_grads_kernel" in key)
-    sort_us = under.get("aten::sort", 0)
-    log(f"  tt_grads with its sort: {(kernel_us + sort_us) / n / 1e3:.3f} ms per step "
-        f"(kernel {kernel_us / n / 1e3:.3f}, aten::sort's kernels {sort_us / n / 1e3:.3f})")
+    # the step's one sort (the only one on the card), then tt_fwd and
+    # tt_grads, which both take it
+    fwd_us, grads_us = (sum(us for key, (_, us) in ops.items() if name in key)
+                        for name in ("tt_fwd_kernel", "tt_grads_kernel"))
+    sort_us = under.get("aten::sort", (0, 0))[1]
+    log(f"  the step's sort (aten::sort's kernels) {sort_us / n / 1e3:.3f} ms per step, "
+        f"tt_fwd {fwd_us / n / 1e3:.3f}, tt_grads {grads_us / n / 1e3:.3f}")
     for us, key, count in sorted(rows, reverse=True)[:10]:
         log(f"    {us / n / 1e3:8.3f} ms/step {us / max(busy_us, 1e-9):6.1%}  "
             f"x{count // n:<3d} {key[:90]}")
@@ -1092,14 +1182,19 @@ def main() -> int:
     log(f"main path: {STEPS_MAIN} --bf16 --sparse steps (bf16 kernel I/O, fused Adam), "
         f"SAGE {cfg.num_layers}x{cfg.hidden_dim}")
     main_ids = [torch.as_tensor(b.all_nodes.astype(np.int32), device=dev) for b in main_b]
+    cores = [c.detach() for c in trainer.cores]
+    seed = torch.tensor(20261017, dtype=torch.int32, device=dev)
     for i, ids in enumerate(main_ids):
-        walk = K.grouped_counts(trainer.shapes, ids)
+        walk, fwd_walk = walk_counts(K, trainer.shapes, ids)
         bound, by = grads_bound(trainer.shapes, walk, 2)
-        log(f"  {walk_line(f'step {i}', trainer.shapes, walk)}; tt_grads' bound (bf16 "
-            f"d_out) {bound:.4f} ms by {by}")
+        fb, fby = fwd_bound(trainer.shapes, fwd_walk, 2)
+        log(f"  {walk_line(f'step {i}', trainer.shapes, walk, fwd_walk)}; tt_fwd[bf16]'s "
+            f"bound {fb:.4f} ms by {fby}, tt_grads' bound (bf16 d_out) {bound:.4f} ms by {by}")
+        fwd_checks(K, trainer.shapes, cores, ids, seed, f" step {i}")
+    del cores
     counts["main"] = counted_steps(trainer, main_b, "bf16 sparse",
                                    ("tt_fwd[bf16]", "tt_grads[bf16]", "tt_adam_apply"))
-    profile_steps(trainer, main_b[:3])
+    profile_steps(trainer, main_b[:3], K)
     # what train_epoch does per batch: sample on the host, then step
     loader_it = iter(trainer.loader)
     torch.cuda.synchronize()
@@ -1171,8 +1266,8 @@ def main() -> int:
                 "max_abs_err": res[n]["max_abs_err"], "ms": res[n]["ms"],
                 "plain_ms": res[n]["plain_ms"], "bound_ms": res[n]["bound_ms"],
                 "bound_by": res[n]["bound_by"], "library_ms": res[n]["library_ms"],
-                **{k: res[n][k] for k in ("device_ms", "library_device_ms", "sort_ms")
-                   if k in res[n]}}
+                **{k: res[n][k] for k in ("device_ms", "library_device_ms", "sort_ms",
+                                          "kernel_ms") if k in res[n]}}
                for m in kernel_modules() for n in m.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -11,35 +11,73 @@
 // in global memory (793 KB at the products shapes, resident in the 50 MB
 // L2) and each id reads its core rows by digit.
 //
-// tt_fwd  replaces falcon_ttdforgnns_tpu/ops/tt_pallas.py:_fwd_kernel, and
-//   with out_kind 2 also :_fwd_kernel_sr.
-//   One warp per id.  The running chain state (L_k x r_k floats, at most
-//   400 at the products shapes) ping-pongs between two per-warp shared
-//   buffers; each lane computes outputs o = lane, lane+32, ... of the next
-//   level with f32 FMAs over the input rank, reading the core row straight
-//   from global (coalesced across lanes, L1/L2 resident).  The last level
-//   is stored straight to the output row, in one of three ways (template
-//   Store): f32; bf16 by round-to-nearest-even (__float2bfloat16_rn, the
-//   rounding of JAX's astype); or bf16 by stochastic rounding, the
-//   bit-exact port of tt_pallas.py:_sr_cast — element (b, f) adds the low
-//   16 bits of splitmix32(seed * 0x9E3779B9 + (b / block) * D * block +
-//   f * block + b % block) to its f32 bits and truncates.  `block` is a
-//   parameter of the hash (the Pallas grid block), not of the launch; the
-//   seed is read from device memory (no host sync).  Bound on H100: the
-//   FMAs (8,000 per id at the products shapes, 15 GFLOP per 937,984 ids,
-//   0.22 ms at the 67 TFLOP/s f32 peak) before the output store (375 MB in
-//   f32, 0.11 ms; 188 MB in bf16, 0.06 ms); the SR hash adds ~12 integer
-//   operations per output element.  The output pointer is typed per store
-//   and __restrict__, and the last level has its own loop: a first version
-//   that passed an untyped output pointer in a struct ran 15% slower (3.86
-//   against 3.36 ms, scripts/torch_kernel_times.py).  Measured: PERF.md.
+// tt_fwd  replaces falcon_ttdforgnns_tpu/ops/tt_pallas.py:_fwd_kernel (f32 or
+//   bf16 store) and :_fwd_kernel_sr (bf16 store by stochastic rounding).
+//   Row b is the chain C_0[d_0] C_1[d_1] ... C_{T-1}[d_{T-1}] at id b's
+//   digits.  Ids that share a prefix (digits d_0..d_{T-2}, i.e. id // p_{T-1})
+//   share the left partial P_{T-2}, and equal ids share the whole row.  So
+//   the ids come sorted, with their positions in the output (the wrapper's
+//   grouped_order: the same sort tt_grads takes, made once a step and given
+//   to both), and one warp walks a chunk of `chunk` consecutive sorted
+//   positions on a 1-D grid of one wave, as tt_grads does:
+//     per segment (one prefix within the chunk): P_{T-2}, recomputed from the
+//       first digit that changed, P_k[l, m] = sum_r P_{k-1}[l, r] C_k[d_k][r, m];
+//     per piece (one distinct id within the chunk): the last level
+//       row[l, u] = sum_r P_{T-2}[l, r] C_{T-1}[d_{T-1}][r, u], into the
+//       warp's shared memory (d_{T-1} = id - (id / p_{T-1}) p_{T-1});
+//     per position j of that id: the row stored to out[perm[j]], the lanes on
+//       consecutive values (f32 four at a time where D % 4 == 0, bf16 in
+//       pairs where D is even).
+//   Each product is one warp_mm (below): a lane owns 2 x 2 outputs, so each
+//   value it loads feeds two FMAs, and steps its output block without an
+//   integer division.  Each output element's arithmetic is the per-id
+//   chain's: fmaf over the input rank in ascending order from 0.f, so the f32
+//   rows are bit for bit those of the per-id kernel this replaces.  Three
+//   stores (template Store): f32; bf16 by round-to-nearest-even
+//   (__float2bfloat16_rn, the rounding of JAX's astype); bf16 by stochastic
+//   rounding, the bit-exact port of tt_pallas.py:_sr_cast — element (b, f)
+//   adds the low 16 bits of splitmix32(seed * 0x9E3779B9 + (b / block) * D *
+//   block + f * block + b % block) to its f32 bits and truncates, b the
+//   output row perm[j] and not the sorted position, so a row computed once is
+//   still dithered apart at each of its positions.  `block` is a parameter of
+//   the hash (the Pallas grid block), not of the launch; the seed is read
+//   from device memory (no host sync).
+//   Why the per-id chain was slow: one warp per id paid 8,000 FMAs an id at
+//   the products shapes (p=125,140,140, q=5,5,4, ranks 16,16): 6,400 for
+//   P_1, which every id of a prefix recomputed, and 1,600 for the last level;
+//   each FMA loaded its core value through __ldg, and each output paid an
+//   integer division.  It ran the main path's 937,984 ids in 3.38 ms on an
+//   H100, 6.6% of the 0.224 ms that those FMAs take at the f32 peak.
+//   Bound on H100 now: the main path's ~720K distinct ids in 17,494 prefix
+//   runs need ~1.26 GMAC (1,600 a distinct id, 6,400 a prefix run): 0.038 ms
+//   at the 67 TFLOP/s f32 peak, below the output store, 188 MB in bf16
+//   (0.056 ms) or 375 MB in f32 (0.113 ms) at 3.35 TB/s, plus the ids (4 B
+//   each) and the cores once.  chip_smoke.py computes both from each input's
+//   distinct ids and prefix runs.  No tensor cores: after the grouping the
+//   FMAs take less time than the store, and TF32 or bf16 MMA would round the
+//   chain's products, off the 1e-5 and bit-equal checks against the plain
+//   version.  What the work per piece costs, as measured on an H100
+//   (scripts/torch_kernel_times.py, chip_smoke.py; PERF.md): a first
+//   version read P_{T-2} in place, where the last level's lanes, two rows
+//   each, found all their rows in one shared-memory bank (row stride r = 16
+//   floats): 1.49 ms a main-path step.  A transposed copy of P_{T-2}, made
+//   once per segment, gives them consecutive words: 0.70 ms.  The digits are
+//   divided out once per segment (a piece takes its last digit from the
+//   prefix, one division) and the last level's lane tiling is computed once
+//   per launch: 0.74 -> 0.58 ms on 937,984 uniform ids.  Per warp in shared
+//   memory: the row (D floats), P_0..P_{T-2} (P_total), P_{T-2} transposed
+//   and 32 staged (id, position) pairs: 4.2 KB at the products shapes, so
+//   four 8-warp CTAs fit an SM at <= 64 registers a thread (no spills but
+//   for the 4-core f32 store's 56 bytes; at <= 80 registers, three CTAs, the
+//   uniform ids took 0.61 ms).  Measured: PERF.md.
 //
 // tt_grads  replaces tt_pallas.py:_bwd_kernel.
 //   The backward is linear in d_out, and ids that share a prefix (digits
 //   d_0..d_{T-2}, i.e. id // p_{T-1}) share the left partials P_0..P_{T-2}
 //   and the core rows C_0..C_{T-2}.  So the ids are walked in sorted order
-//   (the wrapper's torch.sort gives the sorted ids and the permutation into
-//   d_out) and most of the chain is paid once per run of one prefix:
+//   (grouped_order's torch.sort, the one tt_fwd took in the same step, gives
+//   the sorted ids and the permutation into d_out) and most of the chain is
+//   paid once per run of one prefix:
 //     per distinct id, with G^ the sum of its d_out rows (f32, a bf16 d_out
 //     upcast exactly) as (L_{T-1}, q_{T-1}):
 //       dC_{T-1}[d_{T-1}][r, u] += sum_l P_{T-2}[l, r] G^[l, u]   (atomics)
@@ -69,8 +107,8 @@
 //   FMAs and 64 atomics, a segment 19,200 FMAs (6,400 for P_1, 12,800 for
 //   cores 1 and 0) and 1,360 atomics, against 22,400 FMAs and 1,424 atomics
 //   for every id before.  Bound on H100: the larger of the bytes (d_out
-//   once, 188 MB in bf16 for 937,984 ids, plus the ids, the int64
-//   permutation, the cores and the gradient: ~0.06 ms at 3.35 TB/s) and
+//   once, 188 MB in bf16 for 937,984 ids, plus the ids at 4 B each, the
+//   cores and the gradient: ~0.06 ms at 3.35 TB/s) and
 //   these FMAs for the input's counts of distinct ids and segments at the
 //   f32 peak (chip_smoke.py computes and prints both).  The atomics run at
 //   L2 into the zeroed (n_total,) gradient (793 KB, L2-resident), so the
@@ -134,7 +172,6 @@ struct TTMeta {
   int stride[kMaxCores];
   int L[kMaxCores + 1];       // L[k] = prod(q_0 .. q_{k-1}), L[0] = 1
   int F[kMaxCores];           // core row size r_k * q_k * r_{k+1}
-  int S;                      // max_k L[k+1] * r[k+1]: largest chain state
   int P_total;                // sum_{k<T-1} L[k+1] * r[k+1]: the left partials
   long long off[kMaxCores + 1];  // offsets of each core in the flat gradient
 };
@@ -160,7 +197,8 @@ struct OptPtrs {
 
 constexpr int kSgdThreads = 256;
 constexpr int kGradsBlocksPerSM = 4;  // tt_grads: 32 warps an SM, <= 64 registers a thread
-constexpr int kStage = 32;            // tt_grads: sorted positions a warp stages at a time
+constexpr int kFwdBlocksPerSM = 4;    // tt_fwd: the same
+constexpr int kStage = 32;            // sorted positions a warp stages at a time
 
 enum class Store { kF32, kBF16, kBF16SR };
 
@@ -175,7 +213,6 @@ bool make_meta(const int* spec, TTMeta* m) {
   }
   for (int k = 0; k <= kMaxCores; ++k) m->r[k] = spec[9 + k];
   m->L[0] = 1;
-  m->S = 0;
   m->P_total = 0;
   m->off[0] = 0;
   for (int k = 0; k < m->T; ++k) {
@@ -185,11 +222,13 @@ bool make_meta(const int* spec, TTMeta* m) {
     m->L[k + 1] = m->L[k] * m->q[k];
     m->F[k] = m->r[k] * m->q[k] * m->r[k + 1];
     const int level = m->L[k + 1] * m->r[k + 1];
-    if (level > m->S) m->S = level;
     if (k < m->T - 1) m->P_total += level;
     m->off[k + 1] = m->off[k] + (long long)m->p[k] * m->F[k];
   }
   m->D = m->L[m->T];
+  // row-major digits: the walks take id / p_{T-1} as the prefix
+  for (int k = 0; k < m->T; ++k)
+    if (m->stride[k] != (k == m->T - 1 ? 1 : m->stride[k + 1] * m->p[k + 1])) return false;
   return m->r[0] == 1 && m->r[m->T] == 1;
 }
 
@@ -199,7 +238,7 @@ __device__ __forceinline__ void digits_of(int id, const TTMeta& m, int* d) {
   for (int k = 0; k < T; ++k) d[k] = (id / m.stride[k]) % m.p[k];
 }
 
-// ---------------------------------------------------------------- tt_fwd
+// ---------------------------------------------------------- tt_fwd's stores
 // splitmix32 finalizer of the salt z, its low 16 bits added to the f32 bits
 // of v, truncated to bf16 (tt_pallas.py:_sr_cast).
 __device__ __forceinline__ unsigned short bf16_sr_bits(float v, unsigned z) {
@@ -224,70 +263,10 @@ __device__ __forceinline__ typename OutOf<S>::type convert_out(float v, unsigned
   }
 }
 
-template <int T, Store S>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-tt_fwd_kernel(const int* __restrict__ ids, long long B, CorePtrs cores,
-              TTMeta m, typename OutOf<S>::type* __restrict__ out,
-              const int* __restrict__ seed, unsigned block) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float* buf0 = smem + warp * 2 * m.S;
-  float* buf1 = buf0 + m.S;
-  unsigned seed_mix = 0;
-  if constexpr (S == Store::kBF16SR) seed_mix = (unsigned)__ldg(seed) * 0x9E3779B9u;
-  for (long long b = (long long)blockIdx.x * kWarpsPerBlock + warp; b < B;
-       b += (long long)gridDim.x * kWarpsPerBlock) {
-    int d[T];
-    digits_of<T>(ids[b], m, d);
-    // SR salt of element (b, 0); element (b, o) adds o * block (mod 2^32)
-    unsigned row_salt = 0;
-    if constexpr (S == Store::kBF16SR)
-      row_salt = seed_mix + (unsigned)(b / block) * ((unsigned)m.D * block)
-                 + (unsigned)(b % block);
-    const float* c0 = cores.c[0] + (long long)d[0] * m.F[0];
-    for (int i = lane; i < m.F[0]; i += 32) buf0[i] = __ldg(c0 + i);
-    __syncwarp();
-    float* cur = buf0;
-    float* nxt = buf1;
-#pragma unroll
-    for (int k = 1; k < T; ++k) {
-      const int rin = m.r[k];
-      const int mm = m.q[k] * m.r[k + 1];
-      const int n = m.L[k] * mm;
-      const float* ck = cores.c[k] + (long long)d[k] * m.F[k];
-      if (k == T - 1) {
-        typename OutOf<S>::type* dst = out + b * m.D;
-        for (int o = lane; o < n; o += 32) {
-          const int l = o / mm;
-          const int c = o - l * mm;
-          const float* s = cur + l * rin;
-          float acc = 0.f;
-          for (int r = 0; r < rin; ++r) acc = fmaf(s[r], __ldg(ck + r * mm + c), acc);
-          dst[o] = convert_out<S>(acc, row_salt + (unsigned)o * block);
-        }
-      } else {
-        for (int o = lane; o < n; o += 32) {
-          const int l = o / mm;
-          const int c = o - l * mm;
-          const float* s = cur + l * rin;
-          float acc = 0.f;
-          for (int r = 0; r < rin; ++r) acc = fmaf(s[r], __ldg(ck + r * mm + c), acc);
-          nxt[o] = acc;
-        }
-      }
-      __syncwarp();
-      float* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
-  }
-}
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// -------------------------------------------------------------- tt_grads
+// ------------------------------------------------- the chain's warp products
 // One warp's share of an R x C product out(i, j) = sum_k A(i, k) B(k, j),
 // A(i, k) = A[i * ai + k * ak] in shared memory, B(k, j) = B[k * bk + j *
 // bj] in shared memory or, with kGlobalB, in global memory (a core row,
@@ -297,15 +276,34 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 // the fixed step (32 blocks) without a division; rows and columns past the
 // edge load a clamped address and emit nothing.  emit(i, j, value) takes
 // every result.
-template <int RB, int CB, bool kGlobalB, class Emit>
-__device__ __forceinline__ void warp_mm(int R, int C, int K, const float* A, int ai, int ak,
-                                        const float* B, int bk, int bj, Emit emit) {
+// Which RB x CB output blocks of an R x C product the lane takes: the first
+// (ib, jb), the step (di, dj) to its next, 32 blocks on, and the count of
+// blocks.  A product of fixed shape computes this once (tt_fwd's last level).
+struct Tiling {
+  int ncb, items, di, dj, ib, jb;
+};
+
+template <int RB, int CB>
+__device__ __forceinline__ Tiling tiling(int R, int C) {
   const int lane = threadIdx.x & 31;
-  const int ncb = (C + CB - 1) / CB;
-  const int items = ((R + RB - 1) / RB) * ncb;
-  const int di = 32 / ncb, dj = 32 % ncb;
-  int ib = lane / ncb, jb = lane % ncb;
-  for (int it = lane; it < items; it += 32) {
+  Tiling t;
+  t.ncb = (C + CB - 1) / CB;
+  t.items = ((R + RB - 1) / RB) * t.ncb;
+  t.di = 32 / t.ncb;
+  t.dj = 32 % t.ncb;
+  t.ib = lane / t.ncb;
+  t.jb = lane % t.ncb;
+  return t;
+}
+
+template <int RB, int CB, bool kGlobalB, class Emit>
+__device__ __forceinline__ void warp_mm(const Tiling& tl, int R, int C, int K, const float* A,
+                                        int ai, int ak, const float* B, int bk, int bj,
+                                        Emit emit) {
+  const int lane = threadIdx.x & 31;
+  const int ncb = tl.ncb, di = tl.di, dj = tl.dj;
+  int ib = tl.ib, jb = tl.jb;
+  for (int it = lane; it < tl.items; it += 32) {
     const int i0 = ib * RB, j0 = jb * CB;
     const float* pa[RB];
     const float* pb[CB];
@@ -351,6 +349,176 @@ __device__ __forceinline__ void warp_mm(int R, int C, int K, const float* A, int
   }
 }
 
+template <int RB, int CB, bool kGlobalB, class Emit>
+__device__ __forceinline__ void warp_mm(int R, int C, int K, const float* A, int ai, int ak,
+                                        const float* B, int bk, int bj, Emit emit) {
+  warp_mm<RB, CB, kGlobalB>(tiling<RB, CB>(R, C), R, C, K, A, ai, ak, B, bk, bj, emit);
+}
+
+// P_k for k = f .. T-2 at the prefix digits d (P_0 is the core-0 row), P_k
+// (L_{k+1}, r_{k+1}) at P + poff[k]: tt_fwd's and tt_grads' left partials.
+template <int T>
+__device__ __forceinline__ void left_partials(int f, const int* d, const TTMeta& m,
+                                              const CorePtrs& cores, float* P,
+                                              const int* poff) {
+  const int lane = threadIdx.x & 31;
+  if (f == 0) {
+    const float* c0 = cores.c[0] + (long long)d[0] * m.F[0];
+    for (int i = lane; i < m.F[0]; i += 32) P[i] = __ldg(c0 + i);
+    __syncwarp();
+  }
+#pragma unroll
+  for (int k = 1; k < T - 1; ++k) {
+    if (k < f) continue;
+    const int rk = m.r[k], Mk = m.q[k] * m.r[k + 1];
+    float* out = P + poff[k];
+    warp_mm<2, 2, true>(m.L[k], Mk, rk, P + poff[k - 1], rk, 1,
+                        cores.c[k] + (long long)d[k] * m.F[k], Mk, 1,
+                        [&](int i, int j, float v) { out[i * Mk + j] = v; });
+    __syncwarp();
+  }
+}
+
+// The first prefix digit (0 .. T-2) in which nd differs from d, else T - 1.
+template <int T>
+__device__ __forceinline__ int first_changed(const int* nd, const int* d) {
+  int f = T - 1;
+#pragma unroll
+  for (int k = T - 2; k >= 0; --k)
+    if (nd[k] != d[k]) f = k;
+  return f;
+}
+
+// ---------------------------------------------------------------- tt_fwd
+// Floats of one warp's shared memory: the current id's f32 row (D), P_0 ..
+// P_{T-2} (P_total), P_{T-2} transposed (L_{T-1} r_{T-1}), each rounded up
+// to 4 floats so that the row is read 16 bytes at a time, then kStage
+// staged ids and kStage positions.
+__host__ __device__ __forceinline__ int fwd_warp_floats(const TTMeta& m) {
+  return ((m.D + 3) & ~3) + ((m.P_total + 3) & ~3) +
+         ((m.L[m.T - 1] * m.r[m.T - 1] + 3) & ~3) + 2 * kStage;
+}
+
+// One row of D values from shared memory to dst in global memory, the lanes
+// on consecutive values, `vec` at a time (4 or 2 where D and dst allow, else
+// 1; a bf16 store writes pairs for 4 and 2).  salt: the SR hash's salt of
+// element 0; element f adds f * block.
+template <Store S>
+__device__ __forceinline__ void store_row(typename OutOf<S>::type* __restrict__ dst,
+                                          const float* row, int D, int vec, unsigned salt,
+                                          unsigned block) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (S == Store::kF32) {
+    if (vec == 4) {
+      for (int i = lane; i < D / 4; i += 32)
+        reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(row)[i];
+    } else if (vec == 2) {
+      for (int i = lane; i < D / 2; i += 32)
+        reinterpret_cast<float2*>(dst)[i] = reinterpret_cast<const float2*>(row)[i];
+    } else {
+      for (int i = lane; i < D; i += 32) dst[i] = row[i];
+    }
+  } else if (vec >= 2) {
+    for (int i = lane; i < D / 2; i += 32) {
+      const float2 v = reinterpret_cast<const float2*>(row)[i];
+      const unsigned s0 = salt + (unsigned)(2 * i) * block;
+      reinterpret_cast<unsigned*>(dst)[i] =
+          (unsigned)convert_out<S>(v.x, s0) | ((unsigned)convert_out<S>(v.y, s0 + block) << 16);
+    }
+  } else {
+    for (int i = lane; i < D; i += 32) dst[i] = convert_out<S>(row[i], salt + (unsigned)i * block);
+  }
+}
+
+// ids: sorted (B,); perm: their rows in out (B, D).  Warps take chunks of
+// `chunk` sorted positions; see the note at the top of the file.
+template <int T, Store S>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kFwdBlocksPerSM)
+tt_fwd_kernel(const int* __restrict__ ids, const long long* __restrict__ perm, long long B,
+              int chunk, CorePtrs cores, TTMeta m, typename OutOf<S>::type* __restrict__ out,
+              const int* __restrict__ seed, unsigned block, int vec) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  constexpr int K = T - 1;
+  const int q = m.q[K], rl = m.r[K], Ll = m.L[K];
+  float* row = smem + warp * fwd_warp_floats(m);
+  float* P = row + ((m.D + 3) & ~3);
+  float* PT = P + ((m.P_total + 3) & ~3);  // P_{T-2} transposed, (r_{T-1}, L_{T-1})
+  int* s_id = reinterpret_cast<int*>(PT + ((Ll * rl + 3) & ~3));
+  int* s_pos = s_id + kStage;
+  int poff[kMaxCores];
+  poff[0] = 0;
+#pragma unroll
+  for (int k = 1; k < T - 1; ++k) poff[k] = poff[k - 1] + m.L[k] * m.r[k];
+  const float* last = P + poff[T - 2];  // P_{T-2} (L_{T-1}, r_{T-1})
+  const Tiling tl = tiling<2, 2>(Ll, q);  // the last level's, the same for every piece
+  const unsigned p_last = (unsigned)m.p[K];
+  unsigned seed_mix = 0;
+  if constexpr (S == Store::kBF16SR) seed_mix = (unsigned)__ldg(seed) * 0x9E3779B9u;
+  const unsigned row_step = (unsigned)m.D * block;  // the SR salt of row b + block
+
+  const long long n_chunks = (B + chunk - 1) / chunk;
+  for (long long c = (long long)blockIdx.x * kWarpsPerBlock + warp; c < n_chunks;
+       c += (long long)gridDim.x * kWarpsPerBlock) {
+    const long long hi = (c + 1) * chunk < B ? (c + 1) * chunk : B;
+    int d[T] = {};  // digits of the current id
+    int cur = 0;
+    unsigned cur_pre = 0;  // its prefix, id / p_{T-1}
+    bool have = false;
+    for (long long s0 = c * chunk; s0 < hi; s0 += kStage) {
+      const int n = hi - s0 < kStage ? (int)(hi - s0) : kStage;
+      __syncwarp();  // the last stage's reads are done
+      if (lane < n) {
+        s_id[lane] = ids[s0 + lane];
+        s_pos[lane] = (int)perm[s0 + lane];
+      }
+      __syncwarp();
+      for (int j = 0; j < n;) {
+        const int id = s_id[j];
+        if (!have || id != cur) {
+          // the prefix digits only where the prefix changed (a segment)
+          const unsigned pre = (unsigned)id / p_last;
+          int f = T - 1;
+          if (!have || pre != cur_pre) {
+            int nd[T];
+            digits_of<T>(id, m, nd);
+            f = have ? first_changed<T>(nd, d) : 0;
+#pragma unroll
+            for (int k = 0; k < T - 1; ++k) d[k] = nd[k];
+            cur_pre = pre;
+          }
+          d[K] = (int)((unsigned)id - pre * p_last);
+          __syncwarp();  // the last piece's row is stored
+          if (f < T - 1) {
+            left_partials<T>(f, d, m, cores, P, poff);
+            // the last level's lanes read P_{T-2} down its columns: from the
+            // transpose they read consecutive words, from P_{T-2} itself
+            // every lane's rows would fall in one shared-memory bank
+            for (int o = lane; o < Ll * rl; o += 32) {
+              const int l = o / rl;
+              PT[(o - l * rl) * Ll + l] = last[o];
+            }
+            __syncwarp();
+          }
+          warp_mm<2, 2, true>(tl, Ll, q, rl, PT, 1, Ll, cores.c[K] + (long long)d[K] * m.F[K],
+                              q, 1, [&](int i, int u, float v) { row[i * q + u] = v; });
+          __syncwarp();
+          cur = id;
+          have = true;
+        }
+        // this stage's run of the id: its row to each of its positions
+        for (; j < n && s_id[j] == id; ++j) {
+          const unsigned b = (unsigned)s_pos[j];
+          unsigned salt = 0;
+          if constexpr (S == Store::kBF16SR) salt = seed_mix + (b / block) * row_step + b % block;
+          store_row<S>(out + (long long)b * m.D, row, m.D, vec, salt, block);
+        }
+      }
+    }
+  }
+}
+
 // The per-warp state of tt_grads_kernel in shared memory.
 struct GradsWarp {
   float* P;    // left partials P_0 .. P_{T-2}, P_k (L_{k+1}, r_{k+1}) at poff[k]
@@ -359,28 +527,6 @@ struct GradsWarp {
   float* Gh;   // G^: the current id's summed d_out row (L_{T-1}, q_{T-1})
   int poff[kMaxCores];
 };
-
-// P_k for k = f .. T-2 at the prefix digits d (P_0 is the core-0 row).
-template <int T>
-__device__ __forceinline__ void grads_prefix(int f, const int* d, const TTMeta& m,
-                                             const CorePtrs& cores, GradsWarp& w) {
-  const int lane = threadIdx.x & 31;
-  if (f == 0) {
-    const float* c0 = cores.c[0] + (long long)d[0] * m.F[0];
-    for (int i = lane; i < m.F[0]; i += 32) w.P[i] = __ldg(c0 + i);
-    __syncwarp();
-  }
-#pragma unroll
-  for (int k = 1; k < T - 1; ++k) {
-    if (k < f) continue;
-    const int rk = m.r[k], Mk = m.q[k] * m.r[k + 1];
-    float* out = w.P + w.poff[k];
-    warp_mm<2, 2, true>(m.L[k], Mk, rk, w.P + w.poff[k - 1], rk, 1,
-                        cores.c[k] + (long long)d[k] * m.F[k], Mk, 1,
-                        [&](int i, int j, float v) { out[i * Mk + j] = v; });
-    __syncwarp();
-  }
-}
 
 // The current id's share: the last core's gradient row, and its G_{T-2}
 // added into SG.
@@ -473,18 +619,15 @@ tt_grads_kernel(const int* __restrict__ ids, const long long* __restrict__ perm,
         if (!have || id != cur) {
           int nd[T];
           digits_of<T>(id, m, nd);
-          int f = have ? T - 1 : 0;  // the first prefix digit that changes
+          const int f = have ? first_changed<T>(nd, d) : 0;
           if (have) {
-#pragma unroll
-            for (int k = T - 2; k >= 0; --k)
-              if (nd[k] != d[k]) f = k;
             __syncwarp();  // G^ complete
             grads_id<T>(d, m, cores, w, grad);
             if (f < T - 1) grads_flush<T>(d, m, cores, w, grad);
           }
 #pragma unroll
           for (int k = 0; k < T; ++k) d[k] = nd[k];
-          if (f < T - 1) grads_prefix<T>(f, d, m, cores, w);
+          if (f < T - 1) left_partials<T>(f, d, m, cores, w.P, w.poff);
           for (int i = lane; i < m.D; i += 32) w.Gh[i] = 0.f;
           cur = id;
           have = true;
@@ -625,39 +768,10 @@ unsigned blocks_for(long long B) {
   return (unsigned)((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
-template <int T, Store S>
-cudaError_t launch_fwd(const int* ids, long long B, const CorePtrs& c,
-                       const TTMeta& m, void* out, const int* seed,
-                       unsigned block, cudaStream_t st) {
-  const size_t smem = sizeof(float) * kWarpsPerBlock * 2 * m.S;
-  cudaError_t e = set_smem(tt_fwd_kernel<T, S>, smem);
-  if (e != cudaSuccess) return e;
-  tt_fwd_kernel<T, S><<<blocks_for(B), kWarpsPerBlock * 32, smem, st>>>(
-      ids, B, c, m, static_cast<typename OutOf<S>::type*>(out), seed, block);
-  return cudaGetLastError();
-}
-
-template <int T>
-cudaError_t launch_fwd_store(int out_kind, const int* ids, long long B,
-                             const CorePtrs& c, const TTMeta& m, void* out,
-                             const int* seed, unsigned block, cudaStream_t st) {
-  switch (out_kind) {
-    case 0: return launch_fwd<T, Store::kF32>(ids, B, c, m, out, seed, block, st);
-    case 1: return launch_fwd<T, Store::kBF16>(ids, B, c, m, out, seed, block, st);
-    case 2: return launch_fwd<T, Store::kBF16SR>(ids, B, c, m, out, seed, block, st);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// One wave: as many CTAs as fit on the card at once, fewer if there are
-// fewer chunks than warps.
-template <int T, typename DT>
-cudaError_t launch_grads(const int* ids, const long long* perm, const DT* dout, long long B,
-                         int chunk, const CorePtrs& c, const TTMeta& m, float* grad,
-                         cudaStream_t st) {
-  auto kernel = tt_grads_kernel<T, DT>;
-  const size_t smem =
-      kWarpsPerBlock * (sizeof(float) * (2 * m.P_total + m.D) + sizeof(int) * 2 * kStage);
+// One wave of `kernel` over the chunks of B sorted positions: as many CTAs
+// as fit on the card at once, fewer if there are fewer chunks than warps.
+template <typename K>
+cudaError_t one_wave(K kernel, size_t smem, long long B, int chunk, unsigned* grid) {
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
@@ -665,8 +779,51 @@ cudaError_t launch_grads(const int* ids, const long long* perm, const DT* dout, 
   if (e != cudaSuccess) return e;
   const long long want = ((B + chunk - 1) / chunk + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const long long cap = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
-  kernel<<<(unsigned)(want < cap ? want : cap), kWarpsPerBlock * 32, smem, st>>>(
-      ids, perm, dout, B, chunk, c, m, grad);
+  *grid = (unsigned)(want < cap ? want : cap);
+  return cudaSuccess;
+}
+
+template <int T, Store S>
+cudaError_t launch_fwd(const int* ids, const long long* perm, long long B, int chunk,
+                       const CorePtrs& c, const TTMeta& m, void* out, const int* seed,
+                       unsigned block, cudaStream_t st) {
+  auto kernel = tt_fwd_kernel<T, S>;
+  const size_t smem = sizeof(float) * kWarpsPerBlock * fwd_warp_floats(m);
+  unsigned grid = 0;
+  cudaError_t e = one_wave(kernel, smem, B, chunk, &grid);
+  if (e != cudaSuccess) return e;
+  // values a lane stores at once: rows start at multiples of D values
+  const int vec = (reinterpret_cast<uintptr_t>(out) & 15) ? 1
+                  : m.D % 4 == 0 ? 4 : m.D % 2 == 0 ? 2 : 1;
+  kernel<<<grid, kWarpsPerBlock * 32, smem, st>>>(
+      ids, perm, B, chunk, c, m, static_cast<typename OutOf<S>::type*>(out), seed, block, vec);
+  return cudaGetLastError();
+}
+
+template <int T>
+cudaError_t launch_fwd_store(int out_kind, const int* ids, const long long* perm, long long B,
+                             int chunk, const CorePtrs& c, const TTMeta& m, void* out,
+                             const int* seed, unsigned block, cudaStream_t st) {
+  switch (out_kind) {
+    case 0: return launch_fwd<T, Store::kF32>(ids, perm, B, chunk, c, m, out, seed, block, st);
+    case 1: return launch_fwd<T, Store::kBF16>(ids, perm, B, chunk, c, m, out, seed, block, st);
+    case 2:
+      return launch_fwd<T, Store::kBF16SR>(ids, perm, B, chunk, c, m, out, seed, block, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int T, typename DT>
+cudaError_t launch_grads(const int* ids, const long long* perm, const DT* dout, long long B,
+                         int chunk, const CorePtrs& c, const TTMeta& m, float* grad,
+                         cudaStream_t st) {
+  auto kernel = tt_grads_kernel<T, DT>;
+  const size_t smem =
+      kWarpsPerBlock * (sizeof(float) * (2 * m.P_total + m.D) + sizeof(int) * 2 * kStage);
+  unsigned grid = 0;
+  cudaError_t e = one_wave(kernel, smem, B, chunk, &grid);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kWarpsPerBlock * 32, smem, st>>>(ids, perm, dout, B, chunk, c, m, grad);
   return cudaGetLastError();
 }
 
@@ -725,23 +882,28 @@ const char* tt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// out (B, D) <- rows of the TT table at ids (B,) int32, stored as
-// out_kind 0: f32; 1: bf16, round to nearest even; 2: bf16, stochastic
-// rounding with the int32 at `seed` (device) and the hash's `block`.
-int tt_fwd(const void* ids, long long B, const int* spec, const void* c0,
-           const void* c1, const void* c2, const void* c3, void* out,
+// out (B, D) <- rows of the TT table, from ids (B,) int32 in ascending order
+// and perm (B,) int64, the row of out that each sorted id fills (torch.sort's
+// values and indices), stored as out_kind 0: f32; 1: bf16, round to nearest
+// even; 2: bf16, stochastic rounding with the int32 at `seed` (device) and
+// the hash's `block`.  Each warp takes `chunk` consecutive sorted positions.
+int tt_fwd(const void* ids, const void* perm, long long B, int chunk, const int* spec,
+           const void* c0, const void* c1, const void* c2, const void* c3, void* out,
            int out_kind, const void* seed, int block, void* stream) {
   TTMeta m;
-  if (!make_meta(spec, &m)) return cudaErrorInvalidValue;
+  if (!make_meta(spec, &m) || chunk <= 0 || B < 0 || B > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
   if (out_kind == 2 && (seed == nullptr || block <= 0)) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
   const CorePtrs c = core_ptrs(c0, c1, c2, c3);
   const int* id = static_cast<const int*>(ids);
+  const long long* pos = static_cast<const long long*>(perm);
   const int* sd = static_cast<const int*>(seed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (m.T) {
-    case 2: return launch_fwd_store<2>(out_kind, id, B, c, m, out, sd, block, st);
-    case 3: return launch_fwd_store<3>(out_kind, id, B, c, m, out, sd, block, st);
-    case 4: return launch_fwd_store<4>(out_kind, id, B, c, m, out, sd, block, st);
+    case 2: return launch_fwd_store<2>(out_kind, id, pos, B, chunk, c, m, out, sd, block, st);
+    case 3: return launch_fwd_store<3>(out_kind, id, pos, B, chunk, c, m, out, sd, block, st);
+    case 4: return launch_fwd_store<4>(out_kind, id, pos, B, chunk, c, m, out, sd, block, st);
   }
   return cudaErrorInvalidValue;
 }

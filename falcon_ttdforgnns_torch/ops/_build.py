@@ -36,7 +36,7 @@ _pp = ctypes.POINTER(_p)
 # per source: its C functions' argument types, and its error-string function
 _SIGNATURES: Dict[str, Dict[str, list]] = {
     "tt_kernels": {
-        "tt_fwd": [_p, _ll, ctypes.POINTER(_i), _p, _p, _p, _p, _p, _i, _p, _i, _p],
+        "tt_fwd": [_p, _p, _ll, _i, ctypes.POINTER(_i), _p, _p, _p, _p, _p, _i, _p, _i, _p],
         "tt_grads": [_p, _p, _p, _i, _ll, _i, ctypes.POINTER(_i), _p, _p, _p, _p, _p, _p],
         "tt_adam_apply": [_i, ctypes.POINTER(_ll), _pp, _pp, _pp, _pp,
                           _p, _f, _f, _f, _f, _f, _p],

@@ -19,21 +19,24 @@ Each fused update of the TPU (one ``pallas_call``) is two launches on the
 card: ``tt_grads``, then the in-place update (``tt_fused_adam``,
 ``tt_fused_sgd``, ``tt_fused_adagrad``).  What bounds each kernel on the
 card and what its design does about it is written at the top of the CUDA
-source.  ``tt_grads`` walks the ids in sorted order (:func:`grouped_order`)
-so that ids of one prefix share the chain's work; :func:`tt_grads_grouped_plain`
-repeats that walk in plain PyTorch (equal ids summed, one flush per prefix
-within a chunk), and :func:`grouped_counts` counts its pieces and
-segments, what the kernel's time depends on.  A wrapper runs the plain
-version only for tensors on the CPU; for a CUDA tensor it launches its
-kernel or raises.  Every launch adds one to
-its entry in :func:`launch_counts`, one entry per kernel variant
-(``KERNELS``).
+source.  ``tt_fwd`` and ``tt_grads`` walk the ids in sorted order
+(:func:`grouped_order`) so that ids of one prefix share the chain's work,
+and equal ids the row; each takes that order as ``order=``, so that a step
+sorts its ids once for both (the fused updates pass it on, and
+:class:`TTLookup` keeps its forward's order for the backward), and sorts
+them itself without it.  :func:`tt_fwd_grouped_plain` and
+:func:`tt_grads_grouped_plain` repeat the kernels' walks in plain PyTorch,
+and :func:`grouped_counts` counts their pieces and segments, what the
+kernels' times depend on.  A wrapper runs the plain version only for
+tensors on the CPU; for a CUDA tensor it launches its kernel or raises.
+Every launch adds one to its entry in :func:`launch_counts`, one entry per
+kernel variant (``KERNELS``), and every sort one to :func:`sort_count`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,19 +48,26 @@ KERNELS = ("tt_fwd", "tt_fwd[bf16]", "tt_fwd_sr", "tt_grads", "tt_grads[bf16]",
            "tt_adam_apply", "tt_sgd_apply", "tt_adagrad_apply",
            "tt_adagrad_apply[rowwise]")
 _launches = dict.fromkeys(KERNELS, 0)
+_sorts = 0
+Order = Tuple[torch.Tensor, torch.Tensor]  # (sorted ids, their int64 positions)
 
 
 def reset_launch_counts() -> None:
-    """Zero every launch count and the update wrappers' argument-cache
-    misses (:func:`arg_cache_misses`)."""
-    global _arg_misses
+    """Zero every launch count, the sort count (:func:`sort_count`) and the
+    update wrappers' argument-cache misses (:func:`arg_cache_misses`)."""
+    global _arg_misses, _sorts
     for name in KERNELS:
         _launches[name] = 0
-    _arg_misses = 0
+    _arg_misses = _sorts = 0
 
 
 def launch_counts() -> dict:
     return dict(_launches)
+
+
+def sort_count() -> int:
+    """Calls of :func:`grouped_order` since :func:`reset_launch_counts`."""
+    return _sorts
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -102,6 +112,106 @@ def _core_ptrs(cores: Sequence[torch.Tensor]):
     return ptrs + [None] * (4 - len(ptrs))
 
 
+# ---------------------------------------------------------------- the walk
+# Sorted positions one warp of the tt_grads kernel takes: 64 makes 14,656
+# chunks of the main path's 937,984 ids (3.5 per warp of a full H100) and
+# adds at most one segment per chunk to the <= 17,500 prefix runs.  On the
+# main path's sampled ids, timed by chip_smoke.py at 32, 64 and 128 on an
+# H100, 64 beat 32 by 7% and 128 by 4-5% (PERF.md).  Each function below
+# that takes ``chunk`` reads this when it is None.
+GRADS_CHUNK = 64
+
+
+# Sorted positions one warp of the tt_fwd kernel takes.  On the main path's
+# sampled ids, timed by chip_smoke.py at 32, 64 and 128 on an H100 (the bf16
+# store, the sort given), 64 was fastest: 0.55 ms a step against 0.59 at 32
+# and 0.60 at 128 (PERF.md).  Each function below that takes ``chunk`` for a
+# lookup reads this when it is None.
+FWD_CHUNK = 64
+
+
+def grouped_order(ids: torch.Tensor) -> Order:
+    """The order in which ``tt_fwd`` and ``tt_grads`` walk the ids:
+    ascending, so equal ids sit side by side and the ids of one prefix
+    (digits d_0..d_{T-2}, ``id // p_last``) form one run.  (sorted ids,
+    their int64 positions in ``ids``), from ``torch.sort``."""
+    global _sorts
+    _sorts += 1
+    return torch.sort(ids)
+
+
+def _check_order(ids: torch.Tensor, order: Order) -> None:
+    """Raise unless ``order`` has the form the kernels take for ``ids``:
+    (sorted ids of the ids' type, int64 positions), each (B,) and
+    contiguous on the ids' device.  Whether it is ``grouped_order(ids)`` is
+    the caller's contract (checking that would wait for the card)."""
+    if not isinstance(order, (tuple, list)) or len(order) != 2:
+        raise ValueError("order: expected (sorted ids, positions), as grouped_order returns")
+    sid, perm = order
+    B = ids.shape[0]
+    _check(sid, "order's sorted ids", ids.dtype, (B,))
+    _check(perm, "order's positions", torch.int64, (B,))
+    if sid.device != ids.device or perm.device != ids.device:
+        raise ValueError(f"order: on {sid.device} and {perm.device}, the ids on {ids.device}")
+
+
+def grouped_walk(shapes: TTShapes, sorted_ids: torch.Tensor,
+                 chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where the kernels' walk over ``sorted_ids`` in chunks of ``chunk``
+    positions starts a piece (one id within one chunk) and a segment (one
+    prefix within one chunk): two boolean masks (B,)."""
+    B, chunk = sorted_ids.shape[0], chunk or GRADS_CHUNK
+    start = torch.arange(B, device=sorted_ids.device) % chunk == 0
+    sid = sorted_ids.long()
+    prefix = torch.div(sid, shapes.p_last, rounding_mode="floor") % shapes.num_groups
+    piece, segment = start.clone(), start.clone()
+    piece[1:] |= sid[1:] != sid[:-1]
+    segment[1:] |= prefix[1:] != prefix[:-1]
+    return piece, segment
+
+
+def grouped_counts(shapes: TTShapes, ids: torch.Tensor, chunk: Optional[int] = None) -> dict:
+    """What ``tt_fwd``'s and ``tt_grads``' work depends on, for these ids:
+    distinct ids, prefix runs, pieces (distinct ids, split at chunk starts) and segments
+    (prefix runs, split at chunk starts).  Its sort is not counted in
+    :func:`sort_count`."""
+    sid, _ = torch.sort(ids)
+    B = sid.shape[0]
+    distinct, prefix_runs = grouped_walk(shapes, sid, max(B, 1))  # one chunk
+    piece, segment = grouped_walk(shapes, sid, chunk)
+    return {"ids": B, "distinct": int(distinct.sum()), "prefix_runs": int(prefix_runs.sum()),
+            "pieces": int(piece.sum()), "segments": int(segment.sum())}
+
+
+class _Walk(NamedTuple):
+    """The kernels' walk over sorted ids in plain PyTorch (:func:`_walk`)."""
+    piece: torch.Tensor               # (B,) bool: a piece starts here
+    digits: Tuple[torch.Tensor, ...]  # each piece's digits
+    seg_of: torch.Tensor              # each piece's segment
+    seg_digits: List[torch.Tensor]    # each segment's digits
+    lefts: List[torch.Tensor]         # P_0 .. P_{T-2}, (n_seg, L_{k+1}, r_{k+1}) each
+
+
+def _walk(shapes: TTShapes, cores: Sequence[torch.Tensor], sid: torch.Tensor,
+          chunk: Optional[int]) -> _Walk:
+    """The pieces and segments of the walk over the sorted ids ``sid`` in
+    chunks of ``chunk`` positions (:func:`grouped_walk`), and the left
+    partials once per segment, batched with index_select and bmm."""
+    fr = shapes.full_ranks
+    piece, segment = grouped_walk(shapes, sid, chunk)
+    first = torch.nonzero(piece).squeeze(1)  # each piece's first position
+    digits = tt_digits(shapes, sid.index_select(0, first))
+    seg_of = (torch.cumsum(segment.long(), 0) - 1).index_select(0, first)
+    seg_first = torch.nonzero(segment.index_select(0, first)).squeeze(1)  # a segment's first piece
+    n_seg = seg_first.shape[0]
+    seg_digits = [d.index_select(0, seg_first) for d in digits]
+    lefts = [cores[0].index_select(0, seg_digits[0]).reshape(n_seg, -1, fr[1])]
+    for k in range(1, shapes.ndim - 1):
+        c = cores[k].index_select(0, seg_digits[k]).reshape(n_seg, fr[k], -1)
+        lefts.append(torch.bmm(lefts[-1], c).reshape(n_seg, -1, fr[k + 1]))
+    return _Walk(piece, digits, seg_of, seg_digits, lefts)
+
+
 # ------------------------------------------------------------------ tt_fwd
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -113,15 +223,39 @@ def tt_fwd_plain(shapes: TTShapes, cores: Sequence[torch.Tensor],
     return tt_lookup_gather(shapes, cores, ids).to(out_dtype)
 
 
-def _launch_fwd(shapes, cores, ids, out_dtype, out_kind, seed=None, block=0):
+def tt_fwd_grouped_plain(shapes: TTShapes, cores: Sequence[torch.Tensor],
+                         ids: torch.Tensor, out_dtype: torch.dtype = torch.float32,
+                         chunk: Optional[int] = None) -> torch.Tensor:
+    """``tt_fwd_plain`` computed in the kernel's grouping: the ids sorted
+    (:func:`grouped_order`), P_{T-2} once per segment (one prefix within a
+    chunk of ``chunk`` sorted positions, default ``FWD_CHUNK``), the last
+    level once per piece (one id within a chunk), and each piece's row
+    written to its positions through the permutation.  Batched with
+    index_select and bmm, so only the grouping, not the order of the sums,
+    is the kernel's."""
+    B, D = ids.shape[0], shapes.embedding_dim
+    out = torch.empty((B, D), dtype=torch.float32, device=cores[0].device)
+    if B == 0:
+        return out.to(out_dtype)
+    sid, perm = grouped_order(ids)
+    w = _walk(shapes, cores, sid, chunk or FWD_CHUNK)
+    n_pc = w.digits[0].shape[0]
+    c_last = cores[-1].index_select(0, w.digits[-1]).reshape(n_pc, shapes.full_ranks[-2], -1)
+    rows = torch.bmm(w.lefts[-1].index_select(0, w.seg_of), c_last).reshape(n_pc, D)
+    out.index_copy_(0, perm, rows.index_select(0, torch.cumsum(w.piece.long(), 0) - 1))
+    return out.to(out_dtype)
+
+
+def _launch_fwd(shapes, cores, ids, order, chunk, out_dtype, out_kind, seed=None, block=0):
     B = ids.shape[0]
     _check(ids, "ids", torch.int32, (B,))
     _check_cores(shapes, cores)
     out = torch.empty((B, shapes.embedding_dim), dtype=out_dtype, device=ids.device)
     if B == 0:
         return out
-    rc = _build.library().tt_fwd(ids.data_ptr(), B, _spec(shapes), *_core_ptrs(cores),
-                                 out.data_ptr(), out_kind,
+    sid, perm = order if order is not None else grouped_order(ids)
+    rc = _build.library().tt_fwd(sid.data_ptr(), perm.data_ptr(), B, chunk or FWD_CHUNK,
+                                 _spec(shapes), *_core_ptrs(cores), out.data_ptr(), out_kind,
                                  None if seed is None else seed.data_ptr(), block,
                                  _build.current_stream(ids.get_device()))
     _build.check(rc, "tt_fwd")
@@ -129,14 +263,20 @@ def _launch_fwd(shapes, cores, ids, out_dtype, out_kind, seed=None, block=0):
 
 
 def tt_fwd(shapes: TTShapes, cores: Sequence[torch.Tensor], ids: torch.Tensor,
-           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+           out_dtype: torch.dtype = torch.float32, order: Optional[Order] = None,
+           chunk: Optional[int] = None) -> torch.Tensor:
     """TT row lookup: ids (B,) int32 -> (B, D), stored f32 or bf16 (round
-    to nearest even)."""
+    to nearest even).  On the card: the ids sorted (:func:`grouped_order`,
+    counted in this call's time) unless ``order`` gives that sort, then one
+    kernel over chunks of ``chunk`` (default ``FWD_CHUNK``) sorted
+    positions."""
     if out_dtype not in _OUT_KIND:
         raise TypeError(f"tt_fwd stores float32 or bfloat16, not {out_dtype}")
+    if order is not None:
+        _check_order(ids, order)
     if _on_cpu(ids, *cores):
         return tt_fwd_plain(shapes, cores, ids, out_dtype)
-    out = _launch_fwd(shapes, cores, ids, out_dtype, _OUT_KIND[out_dtype])
+    out = _launch_fwd(shapes, cores, ids, order, chunk, out_dtype, _OUT_KIND[out_dtype])
     if ids.shape[0] > 0:
         _launches["tt_fwd" if out_dtype == torch.float32 else "tt_fwd[bf16]"] += 1
     return out
@@ -184,71 +324,39 @@ def tt_fwd_sr_plain(shapes: TTShapes, cores: Sequence[torch.Tensor],
     return sr_cast_plain(tt_lookup_gather(shapes, cores, ids), seed, block)
 
 
+def tt_fwd_sr_grouped_plain(shapes: TTShapes, cores: Sequence[torch.Tensor],
+                            ids: torch.Tensor, seed: torch.Tensor, block: int = SR_BLOCK,
+                            chunk: Optional[int] = None) -> torch.Tensor:
+    """``tt_fwd_sr_plain`` in the kernel's grouping: the rows of
+    :func:`tt_fwd_grouped_plain`, each element salted by its output row."""
+    return sr_cast_plain(tt_fwd_grouped_plain(shapes, cores, ids, chunk=chunk), seed, block)
+
+
 def tt_fwd_sr(shapes: TTShapes, cores: Sequence[torch.Tensor], ids: torch.Tensor,
-              seed: torch.Tensor, block: int = SR_BLOCK) -> torch.Tensor:
+              seed: torch.Tensor, block: int = SR_BLOCK, order: Optional[Order] = None,
+              chunk: Optional[int] = None) -> torch.Tensor:
     """TT row lookup stored in bf16 by stochastic rounding: ids (B,) int32,
     ``seed`` one int32 on the ids' device (read by the kernel, no host
-    sync), ``block`` the hash's block -> (B, D) bf16."""
+    sync), ``block`` the hash's block -> (B, D) bf16.  ``order`` and
+    ``chunk`` as for :func:`tt_fwd`."""
     if block <= 0:
         raise ValueError(f"block must be positive, got {block}")
+    if order is not None:
+        _check_order(ids, order)
     if _on_cpu(ids, seed, *cores):
         return tt_fwd_sr_plain(shapes, cores, ids, seed, block)
     if seed.dtype != torch.int32 or seed.numel() != 1:
         raise TypeError(f"seed: expected one int32, got {seed.dtype} {tuple(seed.shape)}")
-    out = _launch_fwd(shapes, cores, ids, torch.bfloat16, 2, seed, block)
+    out = _launch_fwd(shapes, cores, ids, order, chunk, torch.bfloat16, 2, seed, block)
     if ids.shape[0] > 0:
         _launches["tt_fwd_sr"] += 1
     return out
 
 
 # ---------------------------------------------------------------- tt_grads
-# Sorted positions one warp of the tt_grads kernel takes: 64 makes 14,656
-# chunks of the main path's 937,984 ids (3.5 per warp of a full H100) and
-# adds at most one segment per chunk to the <= 17,500 prefix runs.  On the
-# main path's sampled ids, timed by chip_smoke.py at 32, 64 and 128 on an
-# H100, 64 beat 32 by 7% and 128 by 4-5% (PERF.md).  Each function below
-# that takes ``chunk`` reads this when it is None.
-GRADS_CHUNK = 64
-
-
 def tt_grads_plain(shapes: TTShapes, cores: Sequence[torch.Tensor],
                    ids: torch.Tensor, d_out: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return tt_core_grads(shapes, cores, ids, d_out)
-
-
-def grouped_order(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The order in which ``tt_grads`` walks the ids: ascending, so equal
-    ids sit side by side and the ids of one prefix (digits d_0..d_{T-2},
-    ``id // p_last``) form one run.  (sorted ids, their int64 positions in
-    ``ids``), from ``torch.sort``."""
-    return torch.sort(ids)
-
-
-def grouped_walk(shapes: TTShapes, sorted_ids: torch.Tensor,
-                 chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Where the kernel's walk over ``sorted_ids`` in chunks of ``chunk``
-    positions starts a piece (one id within one chunk) and a segment (one
-    prefix within one chunk): two boolean masks (B,)."""
-    B, chunk = sorted_ids.shape[0], chunk or GRADS_CHUNK
-    start = torch.arange(B, device=sorted_ids.device) % chunk == 0
-    sid = sorted_ids.long()
-    prefix = torch.div(sid, shapes.p_last, rounding_mode="floor") % shapes.num_groups
-    piece, segment = start.clone(), start.clone()
-    piece[1:] |= sid[1:] != sid[:-1]
-    segment[1:] |= prefix[1:] != prefix[:-1]
-    return piece, segment
-
-
-def grouped_counts(shapes: TTShapes, ids: torch.Tensor, chunk: Optional[int] = None) -> dict:
-    """What ``tt_grads``' work depends on, for these ids: distinct ids,
-    prefix runs, pieces (distinct ids, split at chunk starts) and segments
-    (prefix runs, split at chunk starts)."""
-    sid, _ = grouped_order(ids)
-    B = sid.shape[0]
-    distinct, prefix_runs = grouped_walk(shapes, sid, max(B, 1))  # one chunk
-    piece, segment = grouped_walk(shapes, sid, chunk)
-    return {"ids": B, "distinct": int(distinct.sum()), "prefix_runs": int(prefix_runs.sum()),
-            "pieces": int(piece.sum()), "segments": int(segment.sum())}
 
 
 def tt_grads_grouped_plain(shapes: TTShapes, cores: Sequence[torch.Tensor],
@@ -268,20 +376,11 @@ def tt_grads_grouped_plain(shapes: TTShapes, cores: Sequence[torch.Tensor],
     if ids.shape[0] == 0:
         return tuple(grads)
     sid, perm = grouped_order(ids)
-    piece, segment = grouped_walk(shapes, sid, chunk)
-    first = torch.nonzero(piece).squeeze(1)  # each piece's first position
-    n_pc = first.shape[0]
+    w = _walk(shapes, cores, sid, chunk)
+    digits, seg_of, seg_digits, lefts = w.digits, w.seg_of, w.seg_digits, w.lefts
+    n_pc, n_seg = digits[0].shape[0], seg_digits[0].shape[0]
     g_hat = torch.zeros((n_pc, shapes.embedding_dim), dtype=torch.float32, device=dev)
-    g_hat.index_add_(0, torch.cumsum(piece.long(), 0) - 1, d_out.index_select(0, perm).float())
-    digits = tt_digits(shapes, sid.index_select(0, first))
-    seg_of = (torch.cumsum(segment.long(), 0) - 1).index_select(0, first)
-    n_seg = int(segment.sum())
-    seg_first = torch.nonzero(segment.index_select(0, first)).squeeze(1)  # a segment's first piece
-    seg_digits = [d.index_select(0, seg_first) for d in digits]
-    lefts = [cores[0].index_select(0, seg_digits[0]).reshape(n_seg, -1, fr[1])]
-    for k in range(1, T - 1):
-        c = cores[k].index_select(0, seg_digits[k]).reshape(n_seg, fr[k], -1)
-        lefts.append(torch.bmm(lefts[-1], c).reshape(n_seg, -1, fr[k + 1]))
+    g_hat.index_add_(0, torch.cumsum(w.piece.long(), 0) - 1, d_out.index_select(0, perm).float())
     # per piece: the last core's gradient row, and G^ C_{T-1}^T into the segment's sum
     L_last = shapes.embedding_dim // q[-1]
     gh = g_hat.reshape(n_pc, L_last, q[-1])
@@ -302,12 +401,15 @@ def tt_grads_grouped_plain(shapes: TTShapes, cores: Sequence[torch.Tensor],
 
 
 def tt_grads(shapes: TTShapes, cores: Sequence[torch.Tensor], ids: torch.Tensor,
-             d_out: torch.Tensor, chunk: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+             d_out: torch.Tensor, chunk: Optional[int] = None,
+             order: Optional[Order] = None) -> Tuple[torch.Tensor, ...]:
     """Dense per-core f32 gradients of a TT lookup from ids (B,) int32 and
     d_out (B, D) f32 or bf16; duplicate ids accumulate.  On the card: the
-    ids sorted (:func:`grouped_order`, counted in this call's time), then
-    one kernel over chunks of ``chunk`` (default ``GRADS_CHUNK``) sorted
-    positions."""
+    ids sorted (:func:`grouped_order`, counted in this call's time) unless
+    ``order`` gives that sort, then one kernel over chunks of ``chunk``
+    (default ``GRADS_CHUNK``) sorted positions."""
+    if order is not None:
+        _check_order(ids, order)
     if _on_cpu(ids, d_out, *cores):
         return tt_grads_plain(shapes, cores, ids, d_out)
     B = ids.shape[0]
@@ -318,7 +420,7 @@ def tt_grads(shapes: TTShapes, cores: Sequence[torch.Tensor], ids: torch.Tensor,
     _check_cores(shapes, cores)
     out = torch.zeros((shapes.num_tt_params,), dtype=torch.float32, device=ids.device)
     if B > 0:
-        sid, perm = grouped_order(ids)
+        sid, perm = order if order is not None else grouped_order(ids)
         rc = _build.library().tt_grads(sid.data_ptr(), perm.data_ptr(), d_out.data_ptr(),
                                        int(bf16), B, chunk or GRADS_CHUNK, _spec(shapes),
                                        *_core_ptrs(cores), out.data_ptr(),
@@ -516,49 +618,63 @@ def tt_adagrad_apply(cores, accs, grads, lr: float, eps: float,
 
 
 # ------------------------------------------------------------ fused updates
+# Each fused update takes the ids' ``order`` (:func:`grouped_order`), as
+# ``tt_grads`` does, and passes it on.
 def tt_fused_adam(shapes: TTShapes, cores, ms, vs, ids: torch.Tensor,
                   d_out: torch.Tensor, scal: torch.Tensor, b1: float = 0.9,
-                  b2: float = 0.999, eps: float = 1e-8) -> None:
+                  b2: float = 0.999, eps: float = 1e-8,
+                  order: Optional[Order] = None) -> None:
     """Batch-total core gradients, then one Adam step, in place: the port of
     ``tt_fused_adam_pallas`` (two launches on the card)."""
-    grads = tt_grads(shapes, cores, ids, d_out)
+    grads = tt_grads(shapes, cores, ids, d_out, order=order)
     tt_adam_apply(cores, ms, vs, grads, scal, b1, b2, eps)
 
 
 def tt_fused_sgd(shapes: TTShapes, cores, ids: torch.Tensor, d_out: torch.Tensor,
-                 lr: float) -> None:
+                 lr: float, order: Optional[Order] = None) -> None:
     """Batch-total core gradients at the pre-step cores, then
     ``core -= lr * g`` in place: the port of ``tt_fused_sgd_pallas``."""
-    grads = tt_grads(shapes, cores, ids, d_out)
+    grads = tt_grads(shapes, cores, ids, d_out, order=order)
     tt_sgd_apply(cores, grads, lr)
 
 
 def tt_fused_adagrad(shapes: TTShapes, cores, accs, ids: torch.Tensor,
                      d_out: torch.Tensor, lr: float, eps: float = 1e-10,
-                     rowwise: bool = False) -> None:
+                     rowwise: bool = False, order: Optional[Order] = None) -> None:
     """Batch-total core gradients, then one adagrad (or rowwise adagrad)
     step on the cores and accumulators, in place: the port of
     ``tt_fused_adagrad_pallas``."""
-    grads = tt_grads(shapes, cores, ids, d_out)
+    grads = tt_grads(shapes, cores, ids, d_out, order=order)
     tt_adagrad_apply(cores, accs, grads, lr, eps, rowwise)
 
 
 # ------------------------------------------------------ differentiable ops
+def _keep_order(ctx, shapes: TTShapes, ids: torch.Tensor, cores) -> Order:
+    """Sort the ids once for the lookup's forward and backward: the order is
+    kept for ``tt_grads`` with the ids and the cores."""
+    ctx.shapes = shapes
+    order = grouped_order(ids)
+    ctx.save_for_backward(ids, *order, *cores)
+    return order
+
+
+def _lookup_grads(ctx, d_out: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    ids, sid, perm, *cores = ctx.saved_tensors
+    return tt_grads(ctx.shapes, cores, ids, d_out.contiguous(), order=(sid, perm))
+
+
 class TTLookup(torch.autograd.Function):
     """Differentiable TT lookup: ``tt_fwd`` forward, ``tt_grads`` backward
-    (mirrors ``tt_lookup_fused``).  ids get no gradient."""
+    (mirrors ``tt_lookup_fused``), one sort of the ids for both.  ids get
+    no gradient."""
 
     @staticmethod
     def forward(ctx, shapes: TTShapes, ids: torch.Tensor, *cores: torch.Tensor):
-        ctx.shapes = shapes
-        ctx.save_for_backward(ids, *cores)
-        return tt_fwd(shapes, cores, ids)
+        return tt_fwd(shapes, cores, ids, order=_keep_order(ctx, shapes, ids, cores))
 
     @staticmethod
     def backward(ctx, d_out: torch.Tensor):
-        ids, *cores = ctx.saved_tensors
-        grads = tt_grads(ctx.shapes, cores, ids, d_out.contiguous())
-        return (None, None, *grads)
+        return (None, None, *_lookup_grads(ctx, d_out))
 
 
 class TTLookupBF16(torch.autograd.Function):
@@ -568,9 +684,8 @@ class TTLookupBF16(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, shapes: TTShapes, ids: torch.Tensor, *cores: torch.Tensor):
-        ctx.shapes = shapes
-        ctx.save_for_backward(ids, *cores)
-        return tt_fwd(shapes, cores, ids, out_dtype=torch.bfloat16)
+        return tt_fwd(shapes, cores, ids, out_dtype=torch.bfloat16,
+                      order=_keep_order(ctx, shapes, ids, cores))
 
     backward = staticmethod(TTLookup.backward)
 
@@ -583,15 +698,11 @@ class TTLookupBF16SR(torch.autograd.Function):
     @staticmethod
     def forward(ctx, shapes: TTShapes, ids: torch.Tensor, seed: torch.Tensor,
                 *cores: torch.Tensor):
-        ctx.shapes = shapes
-        ctx.save_for_backward(ids, *cores)
-        return tt_fwd_sr(shapes, cores, ids, seed)
+        return tt_fwd_sr(shapes, cores, ids, seed, order=_keep_order(ctx, shapes, ids, cores))
 
     @staticmethod
     def backward(ctx, d_out: torch.Tensor):
-        ids, *cores = ctx.saved_tensors
-        grads = tt_grads(ctx.shapes, cores, ids, d_out.contiguous())
-        return (None, None, None, *grads)
+        return (None, None, None, *_lookup_grads(ctx, d_out))
 
 
 def tt_lookup_fused(shapes: TTShapes, cores: Sequence[torch.Tensor],

@@ -13,10 +13,11 @@ so ``steps_per_call`` is accepted and has no effect).
 
 Two step bodies, as in the JAX trainer:
 
-* ``--sparse`` (fused, ``trainer.py:627-716``): the TT lookup runs without
-  autograd (``tt_fwd``, storing bf16 under ``--bf16``/``--bf16-kernel``, or
-  ``tt_fwd_sr`` with ``--bf16-sr`` as well, seeded per step from a device
-  generator); the conv tower and the loss backprop to ``h_all`` as a leaf
+* ``--sparse`` (fused, ``trainer.py:627-716``): the step sorts its ids
+  once (``grouped_order``) for the lookup and the core update; the TT
+  lookup runs without autograd (``tt_fwd``, storing bf16 under
+  ``--bf16``/``--bf16-kernel``, or ``tt_fwd_sr`` with ``--bf16-sr`` as
+  well, seeded per step from a device generator); the conv tower and the loss backprop to ``h_all`` as a leaf
   (so ``d_h`` comes back in ``h_all``'s dtype); the dense params take Adam
   with the plateau scale; then the fused core update, ``tt_grads`` and one
   of: ``tt_adam_apply`` with ``scal = [lr * plateau_scale, 1/(1-b1^t),
@@ -46,8 +47,8 @@ from ..models.sage import SAGE, collect_level_ids
 from ..ops.spmm_blocked import (build_window_tiles, chunk_tiles_host,
                                 default_blocked_tiling, spmm_sum_blocked_dev)
 from ..ops.spmm_tiled import auto_tile_edges, build_spmm_tiles_uniform, spmm_sum_tiled_uniform
-from ..ops.tt_kernels import (tt_fused_adagrad, tt_fused_adam, tt_fused_sgd,
-                              tt_fwd, tt_fwd_sr)
+from ..ops.tt_kernels import (grouped_order, tt_fused_adagrad, tt_fused_adam,
+                              tt_fused_sgd, tt_fwd, tt_fwd_sr)
 from ..utils import resolve_device
 from ..utils.metrics import throughput
 from .optim import (ADAGRAD_EPS, ADAM_B1, ADAM_B2, ADAM_EPS, ROWWISE_ADAGRAD_EPS,
@@ -291,12 +292,14 @@ class SageTrainer:
         if self.fused_sparse:
             all_ids, _, _ = collect_level_ids(seeds, layers)
             all_ids = all_ids.to(torch.int32)
+            order = grouped_order(all_ids)  # one sort a step, for tt_fwd and tt_grads
             cores = [c.detach() for c in self.cores]
             with torch.no_grad():
                 if self.h_dtype == torch.bfloat16 and cfg.bf16_sr:
-                    h_all = tt_fwd_sr(self.shapes, cores, all_ids, self._sr_seed())
+                    h_all = tt_fwd_sr(self.shapes, cores, all_ids, self._sr_seed(),
+                                      order=order)
                 else:
-                    h_all = tt_fwd(self.shapes, cores, all_ids, self.h_dtype)
+                    h_all = tt_fwd(self.shapes, cores, all_ids, self.h_dtype, order=order)
             h_all.requires_grad_(True)
             logits = self.model.forward_from_embeddings(
                 h_all, seeds, layers, train=True, generator=self.dropout_gen)
@@ -312,7 +315,7 @@ class SageTrainer:
         adam_update(self.opt_params, grads, self.opt_state, cfg.lr, scale,
                     cfg.weight_decay)
         if self.fused_sparse:
-            self._fused_core_update(cores, all_ids, d_h.contiguous(), scale)
+            self._fused_core_update(cores, all_ids, d_h.contiguous(), scale, order)
         elif self.routed_cores:
             core_update(self.cores, core_grads, self.tt_acc, cfg.tt_optimizer,
                         cfg.lr, scale)
@@ -327,23 +330,24 @@ class SageTrainer:
         return torch.randint(0, 2**31 - 1, (), generator=self.sr_gen,
                              device=self.device, dtype=torch.int32)
 
-    def _fused_core_update(self, cores, ids, d_h, scale) -> None:
+    def _fused_core_update(self, cores, ids, d_h, scale, order) -> None:
         """``tt_grads`` and the in-place update of ``--tt-optimizer``: Adam
         with the plateau-scaled lr, or sgd/adagrad with the fixed lr (JAX
-        ``trainer.py:673-707``)."""
+        ``trainer.py:673-707``); ``order`` is the step's sort of ``ids``."""
         cfg = self.cfg
         if cfg.tt_optimizer == "adam":
             self.tt_opt.count += 1
             bc1, bc2 = bias_corrections(self.tt_opt.count)
             scal = torch.stack([cfg.lr * scale, 1.0 / bc1, 1.0 / bc2])
             tt_fused_adam(self.shapes, cores, self.tt_opt.m, self.tt_opt.v, ids, d_h,
-                          scal, ADAM_B1, ADAM_B2, ADAM_EPS)
+                          scal, ADAM_B1, ADAM_B2, ADAM_EPS, order=order)
         elif cfg.tt_optimizer == "sgd":
-            tt_fused_sgd(self.shapes, cores, ids, d_h, cfg.lr)
+            tt_fused_sgd(self.shapes, cores, ids, d_h, cfg.lr, order=order)
         else:
             rowwise = cfg.tt_optimizer == "rowwise_adagrad"
             tt_fused_adagrad(self.shapes, cores, self.tt_acc, ids, d_h, cfg.lr,
-                             ROWWISE_ADAGRAD_EPS if rowwise else ADAGRAD_EPS, rowwise)
+                             ROWWISE_ADAGRAD_EPS if rowwise else ADAGRAD_EPS, rowwise,
+                             order=order)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         cfg = self.cfg

@@ -3,15 +3,21 @@
 SpMMs, at the products shapes.
 
     python3 scripts/torch_kernel_times.py [--root DIR] [--spmm]
-        [--graph-cache FILE]
+        [--graph-cache FILE] [--save FILE] [--against FILE]
 
 Imports ``falcon_ttdforgnns_torch`` from DIR (default: the checkout this
-script sits in), builds its kernels, and times ``tt_fwd`` (f32 and bf16
-store) and ``tt_grads`` (f32 and bf16 ``d_out``; with the ids' sort apart
-where that checkout sorts them) on the inputs chip_smoke.py uses:
-ogbn-products TT shapes (p=125,140,140, q=5,5,4, ranks 16,16) and 937,984
-ids from a seeded zipf(1.3) draw; ``tt_grads`` also on 937,984 uniform
-ids (779K distinct, near the main path's sampled batches: 720K).  With
+script sits in), builds its kernels, and times the lookup's three stores
+(``tt_fwd`` f32 and bf16, ``tt_fwd_sr``) and ``tt_grads`` (f32 and bf16
+``d_out``; with the ids' sort apart where that checkout sorts them, and
+the lookup's kernel with the sort given where it takes one) on the inputs
+chip_smoke.py uses: ogbn-products TT shapes (p=125,140,140, q=5,5,4, ranks
+16,16) and 937,984 ids from a seeded zipf(1.3) draw; all of them also on
+937,984 uniform ids (779K distinct, near the main path's sampled batches:
+720K).  ``--save FILE`` writes four lookup outputs (f32 on both draws,
+bf16 on the uniform draw, SR on the zipf draw) to FILE (torch.save);
+``--against FILE`` counts the values of this checkout's outputs whose bits
+differ from those saved, so two checkouts' lookups can be compared bit for
+bit.  With
 ``--spmm`` it also times, on the full-size hard-ogbn-products graph with the
 trainer's tilings (chip_smoke.py's): B7
 (``spmm_sum_tiled_uniform``) at D=100, D=256 and bf16 compute at 256, B8
@@ -25,6 +31,7 @@ kernels on one card.  Needs a CUDA device.
 """
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -45,6 +52,12 @@ def ms(fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bits(t):
+    """The raw bits of a float tensor, to compare two of them bit for bit."""
+    import torch
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
 def products_edges(cache):
@@ -106,6 +119,8 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--spmm", action="store_true")
     ap.add_argument("--graph-cache", default=None)
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--against", default=None)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -139,19 +154,44 @@ def main() -> int:
     d_out = torch.randn((B, shapes.embedding_dim), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
     d_bf16 = d_out.to(torch.bfloat16)
-
-    times = {"tt_fwd": ms(lambda: K.tt_fwd(shapes, cores, ids)),
-             "tt_fwd[bf16]": ms(lambda: K.tt_fwd(shapes, cores, ids, torch.bfloat16)),
-             "tt_grads": ms(lambda: K.tt_grads(shapes, cores, ids, d_out)),
-             "tt_grads[bf16]": ms(lambda: K.tt_grads(shapes, cores, ids, d_bf16))}
     uni = torch.tensor(rng.integers(0, shapes.num_embeddings, B).astype(np.int32), device=dev)
-    times["tt_grads[bf16] uniform"] = ms(lambda: K.tt_grads(shapes, cores, uni, d_bf16))
+    seed = torch.tensor(20261016, dtype=torch.int32, device=dev)
+    takes_order = "order" in inspect.signature(K.tt_fwd).parameters
+    lookups = {"tt_fwd": lambda i, **kw: K.tt_fwd(shapes, cores, i, **kw),
+               "tt_fwd[bf16]": lambda i, **kw: K.tt_fwd(shapes, cores, i, torch.bfloat16, **kw),
+               "tt_fwd_sr": lambda i, **kw: K.tt_fwd_sr(shapes, cores, i, seed, **kw)}
+
+    times = {}
+    for draw, i in (("", ids), (" uniform", uni)):
+        order = K.grouped_order(i) if takes_order else None
+        for name, fn in lookups.items():
+            times[name + draw] = ms(lambda: fn(i))
+            if takes_order:
+                times[f"{name}{draw} kernel"] = ms(lambda: fn(i, order=order))
+        del order
+    times.update({"tt_grads": ms(lambda: K.tt_grads(shapes, cores, ids, d_out)),
+                  "tt_grads[bf16]": ms(lambda: K.tt_grads(shapes, cores, ids, d_bf16)),
+                  "tt_grads[bf16] uniform": ms(lambda: K.tt_grads(shapes, cores, uni, d_bf16))})
     if hasattr(K, "grouped_order"):
         times["tt_grads sort"] = ms(lambda: K.grouped_order(ids))
+        times["sort uniform"] = ms(lambda: K.grouped_order(uni))
+    outs = {"tt_fwd": lookups["tt_fwd"](ids), "tt_fwd uniform": lookups["tt_fwd"](uni),
+            "tt_fwd[bf16] uniform": lookups["tt_fwd[bf16]"](uni),
+            "tt_fwd_sr": lookups["tt_fwd_sr"](ids)}
+    differ = None
+    if args.against:
+        saved = torch.load(args.against)
+        differ = {k: int((bits(v) != bits(saved[k].to(dev))).sum()) for k, v in outs.items()}
+    if args.save:
+        os.makedirs(os.path.dirname(os.path.abspath(args.save)), exist_ok=True)
+        torch.save({k: v.cpu() for k, v in outs.items()}, args.save)
+    del outs
     if args.spmm:
         times.update(spmm_times(args.graph_cache))
     print(json.dumps({"root": os.path.abspath(args.root), "card": card,
-                      "chunk": getattr(K, "GRADS_CHUNK", None), "ms": times}))
+                      "chunk": getattr(K, "GRADS_CHUNK", None),
+                      "fwd_chunk": getattr(K, "FWD_CHUNK", None), "ms": times,
+                      "values_differing_from_saved": differ}))
     return 0
 
 

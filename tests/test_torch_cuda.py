@@ -184,6 +184,107 @@ def test_new_kernels_match_plain(cuda, ndim):
         assert counts[name] == 1, counts
 
 
+def fwd_draw(kind, n, rng, B=1500):
+    """Unsorted ids for the grouped lookup: uniform, zipf(1.3), and a hot
+    id a third of the batch (past many chunks) among uniform ids."""
+    if kind == "uniform":
+        ids = rng.integers(0, n, B)
+    elif kind == "zipf":
+        ids = rng.permutation(n)[(rng.zipf(1.3, B) - 1) % n]
+    else:
+        ids = np.concatenate([np.full(B // 3, n // 2), rng.integers(0, n, B - B // 3)])
+    return rng.permutation(ids).astype(np.int32)
+
+
+FWD_STORES = ["f32", "bf16", "sr"]
+
+
+def fwd_both(store, shapes, cores, ids, seed, **kw):
+    """(kernel, plain, grouped plain) rows of one store."""
+    if store == "sr":
+        return (tt_fwd_sr(shapes, cores, ids, seed, 128, **kw),
+                tt_kernels.tt_fwd_sr_plain(shapes, cores, ids, seed, 128),
+                tt_kernels.tt_fwd_sr_grouped_plain(shapes, cores, ids, seed, 128,
+                                                   kw.get("chunk")))
+    dtype = torch.float32 if store == "f32" else torch.bfloat16
+    return (tt_fwd(shapes, cores, ids, dtype, **kw),
+            tt_kernels.tt_fwd_plain(shapes, cores, ids, dtype),
+            tt_kernels.tt_fwd_grouped_plain(shapes, cores, ids, dtype, kw.get("chunk")))
+
+
+@pytest.mark.parametrize("store", FWD_STORES)
+@pytest.mark.parametrize("ndim", [2, 3, 4])
+def test_fwd_grouped_kernel_matches_plain(cuda, ndim, store):
+    """The sorted, prefix-grouped lookup against tt_fwd_plain and its own
+    grouping in plain PyTorch, on uniform, zipf and hot-id draws, at chunks
+    of 1, 3 and FWD_CHUNK, with the order made in the call and given: f32
+    within 1e-5 of the largest value; a bf16 store at most one step off on
+    at most 0.1% of the values (the f32 value before the store may be an ulp
+    off the plain version's).  Each element's arithmetic does not depend on
+    the walk, so every chunk and a given order give the same bits."""
+    shapes, cores = case(ndim, cuda)
+    rng = np.random.default_rng(130 + ndim)
+    seed = torch.tensor(2024, dtype=torch.int32, device=cuda)
+    tt_kernels.reset_launch_counts()
+    launches = 0
+    for kind in ("uniform", "zipf", "hot"):
+        ids = torch.tensor(fwd_draw(kind, shapes.num_embeddings, rng), device=cuda)
+        order = tt_kernels.grouped_order(ids)
+        first = None
+        for kw in (dict(), dict(order=order), dict(chunk=1), dict(chunk=3, order=order)):
+            got, plain, grouped = fwd_both(store, shapes, cores, ids, seed, **kw)
+            launches += 1
+            for want in (plain, grouped):
+                assert got.dtype == want.dtype and got.shape == want.shape
+                if store == "f32":
+                    assert rel_err(got, want) <= 1e-5, (kind, kw)
+                else:
+                    off = bf16_ulps(got, want)
+                    assert int(off.max()) <= 1 and float((off > 0).float().mean()) <= 1e-3
+            bits = got if store == "f32" else got.view(torch.int16)
+            first = bits if first is None else first
+            assert torch.equal(bits, first), (kind, kw)
+    name = {"f32": "tt_fwd", "bf16": "tt_fwd[bf16]", "sr": "tt_fwd_sr"}[store]
+    assert tt_kernels.launch_counts()[name] == launches
+
+
+def test_fwd_order_is_checked_and_empty_batch(cuda):
+    """A malformed order raises before any launch; no ids launch nothing."""
+    shapes, cores = case(3, cuda)
+    ids = torch.randint(0, shapes.num_embeddings, (50,), dtype=torch.int32, device=cuda)
+    sid, perm = tt_kernels.grouped_order(ids)
+    d = torch.randn(50, shapes.embedding_dim, device=cuda)
+    seed = torch.tensor(1, dtype=torch.int32, device=cuda)
+    tt_kernels.reset_launch_counts()
+    for bad in ((sid,), (sid.long(), perm), (sid, perm.int()), (sid[:-1], perm),
+                (sid, perm.cpu()), (sid.cpu(), perm), (sid, torch.stack([perm, perm], 1)[:, 0])):
+        with pytest.raises((TypeError, ValueError)):
+            tt_fwd(shapes, cores, ids, order=bad)
+        with pytest.raises((TypeError, ValueError)):
+            tt_fwd_sr(shapes, cores, ids, seed, order=bad)
+        with pytest.raises((TypeError, ValueError)):
+            tt_grads(shapes, cores, ids, d, order=bad)
+    assert set(tt_kernels.launch_counts().values()) == {0}
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    assert tuple(tt_fwd(shapes, cores, empty, torch.bfloat16).shape) == (0, shapes.embedding_dim)
+    assert tuple(tt_fwd_sr(shapes, cores, empty, seed).shape) == (0, shapes.embedding_dim)
+    assert set(tt_kernels.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("kw,fwd", [(dict(bf16=True), "tt_fwd[bf16]"),
+                                    (dict(bf16=True, bf16_sr=True), "tt_fwd_sr"),
+                                    (dict(tt_optimizer="sgd"), "tt_fwd")])
+def test_fused_step_sorts_once_on_card(cuda, kw, fwd):
+    """A --sparse step on the card sorts its ids once (grouped_order) and
+    hands the order to the lookup and to the fused update."""
+    tr = tiny_trainer(sparse=True, **kw)
+    for step, b in zip(range(2), tr.loader):
+        tt_kernels.reset_launch_counts()
+        tr.train_step(b.seeds, b.layers, b.labels)
+        counts = tt_kernels.launch_counts()
+        assert tt_kernels.sort_count() == 1 and counts[fwd] == 1, (step, counts)
+
+
 ODD_SHAPES = {  # core sizes that are no multiple of 4: the kernel's scalar tail
     2: TTShapes(35, 9, (5, 7), (3, 3), (3,)),
     3: TTShapes(105, 27, (3, 5, 7), (3, 3, 3), (3, 5)),

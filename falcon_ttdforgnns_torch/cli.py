@@ -4,6 +4,8 @@ on CUDA unless ``--device cpu``.
 
     python -m falcon_ttdforgnns_torch.cli --dataset hard-ogbn-products \
         --sparse --epochs 1
+    python -m falcon_ttdforgnns_torch.cli --dataset hard-ogbn-products \
+        --mode puregpu --sparse --bf16 --epochs 1
     python -m falcon_ttdforgnns_torch.cli --model gcn --dataset hard-ogbn-arxiv \
         --spmm blocked --epochs 10
 
@@ -27,7 +29,7 @@ def main(argv=None):
                  "store_emb", "plot"):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not "
-                                      f"ported yet (ROADMAP A10/A17)")
+                                      f"ported yet (ROADMAP A7-A9)")
     if args.emb_name == "dense":
         args.use_tt = False
 

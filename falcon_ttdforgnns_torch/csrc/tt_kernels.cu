@@ -145,12 +145,30 @@
 //     far off the plain version.
 //   tt_adagrad_apply  with tt_grads replaces tt_pallas.py:_adagrad_kernel.
 //     Per element: a += g^2, core -= lr * g / (sqrt(a) + eps), one thread
-//     per value.  Rowwise: one accumulator per p-row of each core; one warp
-//     per row sums g^2 over the row's F_k = r_k q_k r_{k+1} contiguous
-//     values (shuffle reduction), adds the mean to the accumulator, then
-//     updates the row.  Products and sums are written out with __fmul_rn /
+//     per value.  Products and sums are written out with __fmul_rn /
 //     __fadd_rn so nvcc contracts nothing into an FMA: the kernels repeat
 //     the plain versions' arithmetic operation for operation.
+//   tt_adagrad_apply rowwise (the same Pallas kernel's rowwise finalize):
+//     one accumulator per p-row of each core, a[r] += mean(g[r, :]^2), then
+//     core[r, :] -= lr * g[r, :] / (sqrt(a[r]) + eps) over the row's F_k =
+//     r_k q_k r_{k+1} contiguous values.  Bound: the bytes, 2.4 MB of core
+//     and gradient at the products shapes, 0.7 us at 3.35 TB/s: the launch
+//     sets its time.  A first version gave each row one warp, which walked
+//     core 1's 1,280-value rows serially (40 dependent loads for the sum,
+//     then 40 read-modify-writes re-reading g), found its core with a
+//     search over the row offsets and indexed the pointer struct by it (a
+//     copy of the struct to local memory per thread): 10.7 us on an H100.
+//     Now one CTA of kRowThreads takes a row (grid (rows, T), one wave;
+//     blockIdx.y picks the core from separate pointer parameters, as in
+//     tt_sgd_kernel), holds the row's gradient in registers between the sum
+//     and the update (float4 loads where core and gradient are 16-byte
+//     aligned and F_k % 4 == 0, a scalar path otherwise; rows longer than
+//     kRowVecs float4 a thread read the rest of g again), and sums with warp
+//     shuffles and one shared-memory step.  The update keeps the plain
+//     version's roundings (__fdiv_rn, no FMA); only the order of the row's
+//     sum of g^2 differs.  Measured on an H100 (PERF.md): 2.6 us on the
+//     device against 10.7 us; loading the row's core values with g, so that
+//     the update waits on one round trip to memory, took 3.3 us.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -196,6 +214,8 @@ struct OptPtrs {
 };
 
 constexpr int kSgdThreads = 256;
+constexpr int kRowThreads = 256;  // rowwise adagrad: one CTA a row
+constexpr int kRowVecs = 4;       // float4 of g a thread holds: rows up to 4,096 values read once
 constexpr int kGradsBlocksPerSM = 4;  // tt_grads: 32 warps an SM, <= 64 registers a thread
 constexpr int kFwdBlocksPerSM = 4;    // tt_fwd: the same
 constexpr int kStage = 32;            // sorted positions a warp stages at a time
@@ -734,27 +754,92 @@ __global__ void tt_adagrad_kernel(OptPtrs a, float lr, float eps) {
   }
 }
 
-// rowwise: one warp per p-row; s1[k] holds one accumulator per row of core k
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-tt_rowwise_adagrad_kernel(OptPtrs a, float lr, float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= a.row_off[a.T]) return;  // uniform across the warp
-  int k = 0;
-  while (row >= a.row_off[k + 1]) ++k;
-  const long long r = row - a.row_off[k];
-  const int F = a.F[k];
-  const float* g = a.g[k] + r * F;
-  float* c = a.core[k] + r * F;
-  float sq = 0.f;
-  for (int i = lane; i < F; i += 32) sq = __fadd_rn(sq, __fmul_rn(g[i], g[i]));
+__device__ __forceinline__ float sq_sum(float s, float4 v) {
+  s = __fadd_rn(s, __fmul_rn(v.x, v.x));
+  s = __fadd_rn(s, __fmul_rn(v.y, v.y));
+  s = __fadd_rn(s, __fmul_rn(v.z, v.z));
+  return __fadd_rn(s, __fmul_rn(v.w, v.w));
+}
+
+__device__ __forceinline__ float adagrad_step(float c, float g, float lr, float den) {
+  return __fsub_rn(c, __fdiv_rn(__fmul_rn(lr, g), den));
+}
+
+__device__ __forceinline__ float4 adagrad_step4(float4 c, float4 g, float lr, float den) {
+  c.x = adagrad_step(c.x, g.x, lr, den);
+  c.y = adagrad_step(c.y, g.y, lr, den);
+  c.z = adagrad_step(c.z, g.z, lr, den);
+  c.w = adagrad_step(c.w, g.w, lr, den);
+  return c;
+}
+
+// The CTA's sum of v, in every thread: shuffles within each warp, one
+// shared-memory step across the warps (red: kRowThreads / 32 floats, used
+// by every other row, so a fast warp cannot overwrite what a slow one reads).
+__device__ __forceinline__ float cta_sum(float v, float* red) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-  const float acc = __fadd_rn(a.s1[k][r], __fdiv_rn(sq, (float)F));
-  const float den = __fadd_rn(sqrtf(acc), eps);
-  for (int i = lane; i < F; i += 32)
-    c[i] = __fsub_rn(c[i], __fdiv_rn(__fmul_rn(lr, g[i]), den));
-  if (lane == 0) a.s1[k][r] = acc;
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = lane < kRowThreads / 32 ? red[lane] : 0.f;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// rowwise: grid (x, T), blockIdx.y the core, the x CTAs stride over its p_k
+// rows, one row a CTA at a time; a[k] holds one accumulator per row of core k.
+__global__ void __launch_bounds__(kRowThreads) tt_rowwise_adagrad_kernel(
+    float* c0, float* c1, float* c2, float* c3, float* a0, float* a1, float* a2, float* a3,
+    const float* g0, const float* g1, const float* g2, const float* g3, int p0, int p1,
+    int p2, int p3, int F0, int F1, int F2, int F3, float lr, float eps) {
+  __shared__ float red[2][kRowThreads / 32];
+  const unsigned k = blockIdx.y;
+  float* c = k == 0 ? c0 : k == 1 ? c1 : k == 2 ? c2 : c3;
+  float* a = k == 0 ? a0 : k == 1 ? a1 : k == 2 ? a2 : a3;
+  const float* g = k == 0 ? g0 : k == 1 ? g1 : k == 2 ? g2 : g3;
+  const int p = k == 0 ? p0 : k == 1 ? p1 : k == 2 ? p2 : p3;
+  const int F = k == 0 ? F0 : k == 1 ? F1 : k == 2 ? F2 : F3;
+  const int t = threadIdx.x;
+  const bool vec =
+      (F & 3) == 0 && ((reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(g)) & 15) == 0;
+  const int n4 = vec ? F >> 2 : 0;
+  int parity = 0;
+  for (int r = blockIdx.x; r < p; r += gridDim.x, parity ^= 1) {
+    const float* gr = g + (long long)r * F;
+    float* cr = c + (long long)r * F;
+    const float4* g4 = reinterpret_cast<const float4*>(gr);
+    float4* c4 = reinterpret_cast<float4*>(cr);
+    float4 held[kRowVecs];
+    float sq = 0.f;
+#pragma unroll
+    for (int v = 0; v < kRowVecs; ++v) {
+      const int i = t + v * kRowThreads;
+      if (i < n4) {
+        held[v] = __ldg(g4 + i);
+        sq = sq_sum(sq, held[v]);
+      }
+    }
+    for (int i = t + kRowVecs * kRowThreads; i < n4; i += kRowThreads) sq = sq_sum(sq, __ldg(g4 + i));
+    for (int i = 4 * n4 + t; i < F; i += kRowThreads) {
+      const float x = __ldg(gr + i);
+      sq = __fadd_rn(sq, __fmul_rn(x, x));
+    }
+    const float before = a[r];  // read before the barrier in cta_sum; thread 0 writes after it
+    const float acc = __fadd_rn(before, __fdiv_rn(cta_sum(sq, red[parity]), (float)F));
+    const float den = __fadd_rn(sqrtf(acc), eps);
+#pragma unroll
+    for (int v = 0; v < kRowVecs; ++v) {
+      const int i = t + v * kRowThreads;
+      if (i < n4) c4[i] = adagrad_step4(c4[i], held[v], lr, den);
+    }
+    for (int i = t + kRowVecs * kRowThreads; i < n4; i += kRowThreads)
+      c4[i] = adagrad_step4(c4[i], __ldg(g4 + i), lr, den);
+    for (int i = 4 * n4 + t; i < F; i += kRowThreads)
+      cr[i] = adagrad_step(cr[i], __ldg(gr + i), lr, den);
+    if (t == 0) a[r] = acc;
+  }
 }
 
 template <typename K>
@@ -762,10 +847,6 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
-}
-
-unsigned blocks_for(long long B) {
-  return (unsigned)((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
 // One wave of `kernel` over the chunks of B sorted positions: as many CTAs
@@ -978,11 +1059,29 @@ int tt_adagrad_apply(int T, const long long* n, const int* F, void* const* cores
   if (!opt_ptrs(T, n, rowwise ? F : nullptr, cores, accs, nullptr, grads, &a))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rowwise)
-    tt_rowwise_adagrad_kernel<<<blocks_for(a.row_off[T]), kWarpsPerBlock * 32, 0, st>>>(
-        a, lr, eps);
-  else
+  if (!rowwise) {
     tt_adagrad_kernel<<<elementwise_blocks(a), 256, 0, st>>>(a, lr, eps);
+    return cudaGetLastError();
+  }
+  int p[kMaxCores] = {}, f[kMaxCores] = {1, 1, 1, 1};
+  long long most = 0;
+  for (int k = 0; k < T; ++k) {
+    const long long rows = a.row_off[k + 1] - a.row_off[k];
+    if (rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+    p[k] = (int)rows;
+    f[k] = a.F[k];
+    if (rows > most) most = rows;
+  }
+  // one wave: the CTAs that fit on the card at once, shared by the T cores
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, tt_rowwise_adagrad_kernel, kRowThreads, 0);
+  if (e != cudaSuccess) return e;
+  const long long cap = (long long)sm_count() * (per_sm > 0 ? per_sm : 1) / T;
+  const dim3 grid((unsigned)(most < cap ? most : (cap < 1 ? 1 : cap)), (unsigned)T);
+  tt_rowwise_adagrad_kernel<<<grid, kRowThreads, 0, st>>>(
+      a.core[0], a.core[1], a.core[2], a.core[3], a.s1[0], a.s1[1], a.s1[2], a.s1[3], a.g[0],
+      a.g[1], a.g[2], a.g[3], p[0], p[1], p[2], p[3], f[0], f[1], f[2], f[3], lr, eps);
   return cudaGetLastError();
 }
 

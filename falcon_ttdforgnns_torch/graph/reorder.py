@@ -1,7 +1,7 @@
 """Node reordering (``--partition``), port of
 ``falcon_ttdforgnns_tpu/graph/reorder.py``: the default ``partition == 0``
 random permutation only.  The locality-aware orderings (k-way, recursive
-TT-matched, RCMK, degree, louvain) are ROADMAP A11."""
+TT-matched, RCMK, degree, louvain) are ROADMAP A5."""
 
 from __future__ import annotations
 
@@ -24,4 +24,4 @@ def reorder_permutation(graph: CSRGraph, partition: int,
     if partition == 0:
         return random_permutation(graph, seed)
     raise NotImplementedError(f"--partition {partition} is not ported yet "
-                              f"(ROADMAP A11); only 0 (random) is")
+                              f"(ROADMAP A5); only 0 (random) is")

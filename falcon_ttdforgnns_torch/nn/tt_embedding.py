@@ -52,10 +52,10 @@ class TTEmbeddingBag(nn.Module):
         super().__init__()
         if cache_size > 0:
             raise NotImplementedError("the hot-row cache is not ported yet "
-                                      "(ROADMAP A12)")
+                                      "(ROADMAP A6)")
         if grouped:
             raise NotImplementedError("the grouped lookup (--emb-name eff) is "
-                                      "not ported yet (ROADMAP A13)")
+                                      "not ported yet (ROADMAP A6)")
         self.shapes = make_tt_shapes(num_embeddings, embedding_dim, tuple(tt_ranks),
                                      p_shapes, q_shapes)
         self.batch_count = batch_count

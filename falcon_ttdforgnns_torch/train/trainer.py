@@ -1,15 +1,22 @@
-"""Sampled-minibatch GraphSAGE training loop (``--mode mixed``).
+"""Sampled-minibatch GraphSAGE training loop (``--mode mixed`` and
+``--mode puregpu``).
 
-Port of ``falcon_ttdforgnns_tpu/train/trainer.py:SageTrainer``: the host
-sampler feeds static-shape batches to one train step per batch;
-evaluation is full-graph propagation, its SpMM chosen by ``--spmm``:
+Port of ``falcon_ttdforgnns_tpu/train/trainer.py:SageTrainer``.  Under
+``--mode mixed`` the host sampler feeds static-shape batches to one train
+step per batch.  Under ``--mode puregpu`` the CSR (or, with ``--sampler
+table``, a prebuilt neighbour table) is placed on the device once, each
+epoch's seeds and labels cross in one copy per group of
+``steps_per_call`` batches, and every step samples its fan-out tree on the
+device (``graph/device_sampler.py``) before the same step body.  The step
+runs eagerly, one step per call: the JAX package's multi-step
+``fori_loop`` has no counterpart here, so ``steps_per_call`` sets only
+the grouping of a puregpu epoch's seeds and the cadence of its log lines.
+Evaluation is full-graph propagation, its SpMM chosen by ``--spmm``:
 ``xla`` the chunked ``index_add_``, ``pallas`` the tiled kernel (B7),
 ``blocked`` the window-gather kernel (B9); ``infer_full`` is the
 layer-wise form of it.  The reference takes its XLA route for ``pallas``
 off a TPU; the port runs B7 on the card and its plain version on the CPU,
-so the CPU tests reach the routing.  The step runs eagerly, one step per
-call (the JAX package's multi-step ``fori_loop`` has no counterpart here,
-so ``steps_per_call`` is accepted and has no effect).
+so the CPU tests reach the routing.
 
 Two step bodies, as in the JAX trainer:
 
@@ -42,6 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from ..graph.csr import NodeDataset
+from ..graph.device_sampler import (build_neighbor_table, device_sample_block,
+                                    device_sample_block_table)
 from ..graph.sampler import NeighborLoader
 from ..models.sage import SAGE, collect_level_ids
 from ..ops.spmm_blocked import (build_window_tiles, chunk_tiles_host,
@@ -60,6 +69,8 @@ from .optim import (ADAGRAD_EPS, ADAM_B1, ADAM_B2, ADAM_EPS, ROWWISE_ADAGRAD_EPS
 # full-graph aggregation of evaluate(): "xla" the chunked index_add_ SpMM,
 # "pallas" the tiled kernel (B7), "blocked" the window-gather kernel (B9)
 SPMM_ROUTES = ("xla", "pallas", "blocked")
+MODES = ("mixed", "puregpu")    # --mode: host sampling, or in-step on the device
+SAMPLERS = ("csr", "table")     # --sampler of --mode puregpu
 
 
 @dataclass
@@ -120,17 +131,20 @@ class TrainConfig:
 
 def _check_supported(cfg: TrainConfig) -> None:
     missing = [
-        (cfg.mode != "mixed", "--mode puregpu (ROADMAP A8)"),
-        (cfg.dist or cfg.node_shard, "--dist/--node-shard (ROADMAP A16)"),
-        (not cfg.use_sample, "--full-neighbor training (ROADMAP A14)"),
-        (cfg.cache_size > 0 or cfg.access_counts, "the hot-row cache (ROADMAP A12)"),
-        (cfg.grouped, "--emb-name eff (ROADMAP A13)"),
+        (cfg.dist or cfg.node_shard, "--dist/--node-shard (ROADMAP A8)"),
+        (not cfg.use_sample, "--full-neighbor training (ROADMAP A2)"),
+        (cfg.cache_size > 0, "the hot-row cache (ROADMAP A6)"),
+        (cfg.access_counts, "--access-counts (ROADMAP A3)"),
+        (cfg.grouped, "--emb-name eff (ROADMAP A6)"),
         (not cfg.use_tt, "--no-tt dense embeddings (ROADMAP A3)"),
-        (cfg.eval_sampled, "--eval-sampled (ROADMAP A17)"),
+        (cfg.eval_sampled, "--eval-sampled (ROADMAP A9)"),
     ]
     for unsupported, what in missing:
         if unsupported:
             raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.mode not in MODES or cfg.sampler not in SAMPLERS:
+        raise ValueError(f"unknown mode {cfg.mode!r} or sampler {cfg.sampler!r}; "
+                         f"expected one of {MODES} and of {SAMPLERS}")
     if cfg.tt_optimizer not in TT_OPTIMIZERS:
         raise ValueError(f"unknown tt_optimizer {cfg.tt_optimizer!r}")
     if cfg.spmm not in SPMM_ROUTES:
@@ -152,6 +166,9 @@ def _warn_inert_flags(cfg: TrainConfig, warn) -> None:
     if (cfg.bf16_f32_head or cfg.bf16_f32_first) and not (cfg.bf16 or cfg.bf16_tower):
         warn("--bf16-f32-head/--bf16-f32-first have no effect without "
              "--bf16/--bf16-tower (the tower is already f32); running unchanged")
+    if cfg.rng_impl == "rbg":
+        warn("--rng-impl rbg names the TPU's hardware generator, which the card "
+             "has not; the port draws from torch's Philox generator either way")
 
 
 @dataclass
@@ -169,6 +186,15 @@ class FullGraphSpmm:
         if self.route == "pallas":
             return spmm_sum_tiled_uniform(h, *self.arrays, *self.meta)
         return spmm_sum_blocked_dev(h, *self.arrays, *self.meta)
+
+
+def _wrap_full(pick: np.ndarray, order: np.ndarray, size: int) -> np.ndarray:
+    """Extend a ragged tail to exactly ``size`` ids by wrapping around the
+    epoch order, cyclically, so it stays full even when the whole order is
+    shorter than one group (JAX ``trainer.py:550-557``)."""
+    if len(pick) == size:
+        return pick
+    return np.resize(np.concatenate([pick, order]), size)
 
 
 class _EpochMeter:
@@ -222,6 +248,9 @@ class SageTrainer:
         self.ds, self.cfg, self.logger = dataset, config, logger
         self.device = resolve_device(device)
         cfg = config
+        self._indptr_dev = self._indices_dev = self._table_dev = None
+        if cfg.mode == "puregpu":
+            self._put_graph_on_device()
         _warn_inert_flags(cfg, logger.warning if logger
                           else (lambda m: print(m, file=sys.stderr)))
         bf16_tower = cfg.bf16 or cfg.bf16_tower
@@ -267,6 +296,9 @@ class SageTrainer:
                                      seed=cfg.seed, num_workers=cfg.num_workers)
         self.dropout_gen = torch.Generator(device=self.device)
         self.dropout_gen.manual_seed(cfg.seed + 1000)
+        # --mode puregpu: the in-step sampler's own generator, reseeded each epoch
+        self.sample_gen = torch.Generator(device=self.device)
+        self.sample_gen.manual_seed(cfg.seed + 2000)
         self._eval_args = None
         self._spmms: Dict[str, FullGraphSpmm] = {}
         self._metrics: Dict[str, List[float]] = {"loss": [], "throughput": []}
@@ -275,6 +307,23 @@ class SageTrainer:
     # ------------------------------------------------------------------
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device, non_blocking=True)
+
+    def _put_graph_on_device(self) -> None:
+        """``--mode puregpu`` placement (JAX ``trainer.py:447-486``, its
+        sampling branch): ``indptr`` and ``indices`` as int32 on the device
+        and, under ``--sampler table``, the (N, table_width) neighbour table
+        built on the host from ``cfg.seed``.  A graph of 2^31 edges or more
+        would wrap int32 offsets, so it raises before anything is placed."""
+        g, cfg = self.ds.graph, self.cfg
+        if g.num_edges >= 2**31:
+            raise NotImplementedError(
+                f"single-device graph placement needs < 2^31 edges, got {g.num_edges}; "
+                f"use host sampling (--mode mixed); the multi-chip paths are ROADMAP A8")
+        self._indptr_dev = self._tensor(g.indptr.astype(np.int32, copy=False))
+        self._indices_dev = self._tensor(g.indices.astype(np.int32, copy=False))
+        if cfg.sampler == "table":
+            self._table_dev = self._tensor(build_neighbor_table(
+                g.indptr, g.indices, cfg.table_width, cfg.seed))
 
     def _plateau_scale(self, loss: torch.Tensor) -> torch.Tensor:
         if self.patience > 0:
@@ -286,9 +335,32 @@ class SageTrainer:
     def train_step(self, seeds, layers, labels) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step on one sampled batch (host arrays or tensors);
         returns (loss, acc) as device scalars without a host sync."""
+        seeds, labels = self._tensor(seeds), self._tensor(labels)
+        return self._step(seeds, [self._tensor(l) for l in layers], labels)
+
+    def sample_layers(self, seeds: torch.Tensor) -> List[torch.Tensor]:
+        """``--mode puregpu``: the fan-out tree of ``seeds`` (on the device),
+        sampled on the device from the placed CSR or neighbour table with
+        ``sample_gen``; no host sync."""
+        if self._indptr_dev is None:
+            raise ValueError("in-step sampling needs --mode puregpu (the graph on the device)")
+        if self._table_dev is not None:
+            return device_sample_block_table(self._table_dev, seeds, self.cfg.fanouts,
+                                             self.sample_gen)
+        return device_sample_block(self._indptr_dev, self._indices_dev, seeds,
+                                   self.cfg.fanouts, self.sample_gen)
+
+    def device_train_step(self, seeds: torch.Tensor,
+                          labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One ``--mode puregpu`` step: sample on the device, then the step
+        body of :meth:`train_step`; seeds and labels are device tensors."""
+        return self._step(seeds, self.sample_layers(seeds), labels)
+
+    def _step(self, seeds: torch.Tensor, layers: List[torch.Tensor],
+              labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The one step body of both modes, on device tensors."""
         cfg = self.cfg
-        seeds, labels = self._tensor(seeds), self._tensor(labels).long()
-        layers = [self._tensor(l) for l in layers]
+        labels = labels.long()
         if self.fused_sparse:
             all_ids, _, _ = collect_level_ids(seeds, layers)
             all_ids = all_ids.to(torch.int32)
@@ -352,12 +424,45 @@ class SageTrainer:
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         cfg = self.cfg
         self.dropout_gen.manual_seed(cfg.seed + 1000 + epoch)
+        if cfg.mode == "puregpu":
+            return self._train_epoch_device(epoch)
         meter = _EpochMeter(self, epoch)
         for it, batch in enumerate(self.loader):
             loss, acc = self.train_step(batch.seeds, batch.layers, batch.labels)
             self.step += 1
             meter.record(loss, acc, cfg.batch_size,
                          log_now=(it + 1) % cfg.log_every == 0)
+        return meter.summary()
+
+    def _train_epoch_device(self, epoch: int) -> Dict[str, float]:
+        """``--mode puregpu`` (JAX ``_train_epoch_device``,
+        ``trainer.py:969-999``): the epoch's order of the train ids, cut into
+        groups of ``steps_per_call * batch_size`` seeds (the ragged tail
+        wrapped around the order), each group's seeds and labels copied to
+        the device at once, then one :meth:`device_train_step` per batch of
+        the group.  The seeds and labels are the JAX trainer's, step for
+        step; each group logs its mean loss and accuracy on JAX's cadence."""
+        cfg = self.cfg
+        S, B = cfg.steps_per_call, cfg.batch_size
+        self.sample_gen.manual_seed(cfg.seed + 2000 + epoch)
+        order = np.random.default_rng(cfg.seed + 31 * epoch).permutation(self.ds.train_idx)
+        per_group = S * B
+        n_groups = max(1, -(-len(order) // per_group))
+        meter = _EpochMeter(self, epoch)
+        for g in range(n_groups):
+            pick = _wrap_full(order[g * per_group:(g + 1) * per_group], order, per_group)
+            packed = np.empty((S, 2, B), np.int32)
+            packed[:, 0] = pick.reshape(S, B)
+            packed[:, 1] = self.ds.labels[pick].reshape(S, B)
+            packed = self._tensor(packed)  # the group's one host-to-device copy
+            losses, accs = [], []
+            for i in range(S):
+                loss, acc = self.device_train_step(packed[i, 0], packed[i, 1])
+                losses.append(loss)
+                accs.append(acc)
+            self.step += S
+            meter.record(torch.stack(losses).mean(), torch.stack(accs).mean(), per_group,
+                         log_now=(g + 1) % max(1, cfg.log_every // S) == 0)
         return meter.summary()
 
     # ------------------------------------------------------------------

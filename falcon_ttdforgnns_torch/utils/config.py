@@ -67,7 +67,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     d.add_argument("--rng-impl", type=str, default="threefry",
                    choices=["threefry", "rbg"],
                    help="in-step PRNG of the JAX package: threefry or the "
-                        "hardware rbg (cheaper dropout/sampling bits)")
+                        "TPU's hardware rbg; the port accepts both and draws "
+                        "from torch's Philox generator")
     d.add_argument("--synthetic-scale", type=float, default=1.0,
                    help="shrink factor for synthetic fallback datasets")
     d.add_argument("--official-split", action="store_true",
@@ -91,7 +92,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                       help="multi-host bootstrap (not ported yet)")
     dist.add_argument("--steps-per-call", type=int, default=8,
                       help="optimizer steps per dispatch in the JAX package; "
-                           "accepted and without effect in the eager port")
+                           "the eager port runs one step per call, and under "
+                           "--mode puregpu copies the seeds and labels of this "
+                           "many batches to the device at once")
 
     # GNN (tt_utils.py:44-48)
     n = p.add_argument_group("gnn")

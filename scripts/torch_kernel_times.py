@@ -17,7 +17,10 @@ chip_smoke.py uses: ogbn-products TT shapes (p=125,140,140, q=5,5,4, ranks
 bf16 on the uniform draw, SR on the zipf draw) to FILE (torch.save);
 ``--against FILE`` counts the values of this checkout's outputs whose bits
 differ from those saved, so two checkouts' lookups can be compared bit for
-bit.  With
+bit.  It also times the two adagrad updates of the cores,
+``tt_adagrad_apply`` per element and ``[rowwise]`` (one accumulator per
+p-row), on the products cores with random gradients: loop ms and the
+device ms per call from torch.profiler.  With
 ``--spmm`` it also times, on the full-size hard-ogbn-products graph with the
 trainer's tilings (chip_smoke.py's): B7
 (``spmm_sum_tiled_uniform``) at D=100, D=256 and bf16 compute at 256, B8
@@ -52,6 +55,46 @@ def ms(fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=50):
+    """Device time per call of fn() in ms: the kernels' time from
+    torch.profiler over `reps` calls after one warm-up; a profile with fewer
+    kernel records than calls is taken again, and None returned after
+    three (torch.profiler has lost device records, PERF.md §7)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if sum(e.count for e in on_card) >= reps:
+            return sum(getattr(e, "self_device_time_total", 0) for e in on_card) / reps / 1e3
+    return None
+
+
+def adagrad_times(K, cores):
+    """Loop ms and device ms of tt_adagrad_apply, per element and rowwise."""
+    import torch
+    gen = torch.Generator(device=cores[0].device).manual_seed(2)
+    grads = [torch.randn(c.shape, generator=gen, device=c.device) for c in cores]
+    times = {}
+    for rowwise, name in ((False, "tt_adagrad_apply"), (True, "tt_adagrad_apply[rowwise]")):
+        cs = [c.clone() for c in cores]
+        accs = [torch.zeros(c.shape[:1] if rowwise else c.shape, device=c.device)
+                for c in cores]
+
+        def call():
+            K.tt_adagrad_apply(cs, accs, grads, 1e-3, 1e-8 if rowwise else 1e-10, rowwise)
+
+        times[name] = ms(call, 50)
+        times[f"{name} device"] = device_ms(call)
+    return times
 
 
 def bits(t):
@@ -172,6 +215,7 @@ def main() -> int:
     times.update({"tt_grads": ms(lambda: K.tt_grads(shapes, cores, ids, d_out)),
                   "tt_grads[bf16]": ms(lambda: K.tt_grads(shapes, cores, ids, d_bf16)),
                   "tt_grads[bf16] uniform": ms(lambda: K.tt_grads(shapes, cores, uni, d_bf16))})
+    times.update(adagrad_times(K, cores))
     if hasattr(K, "grouped_order"):
         times["tt_grads sort"] = ms(lambda: K.grouped_order(ids))
         times["sort uniform"] = ms(lambda: K.grouped_order(uni))

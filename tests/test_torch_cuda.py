@@ -815,3 +815,124 @@ def test_sage_evaluate_routes_launch_their_kernels(cuda, spmm, kernel):
         assert abs(ours[k] - xla[k]) <= 1.0 / 400 + 1e-7
     counts = {**P.launch_counts(), **B.launch_counts()}
     assert counts[kernel] >= 2  # one per layer (blocked: one per chunk per layer)
+
+
+# --------------------------------------------- rowwise adagrad (B6 rowwise)
+def rowwise_cores(shape, dev, misaligned=False):
+    """Cores of ``shape`` filled from a seeded numpy draw; ``misaligned``
+    puts them one float past a 16-byte boundary (the kernel's scalar path)."""
+    vals = np.random.default_rng(sum(shape)).normal(size=shape).astype(np.float32)
+    if not misaligned:
+        return torch.tensor(vals, device=dev)
+    buf = torch.empty(vals.size + 1, device=dev)
+    buf[1:] = torch.tensor(vals.reshape(-1), device=dev)
+    return buf[1:].view(shape)
+
+
+@pytest.mark.parametrize("shapes,misaligned", [
+    # the products cores: rows of F = 80, 1,280 and 64 values
+    (((125, 1, 5, 16), (140, 16, 5, 16), (140, 16, 4, 1)), False),
+    # F not a multiple of 4 (15, 385) and of the CTA width (385); a row past
+    # the values a CTA holds in registers (5,184); more rows than one wave
+    # of CTAs holds (3,000, F = 4)
+    (((7, 1, 3, 5), (5, 5, 7, 11), (3, 16, 81, 4), (3000, 1, 2, 2)), False),
+    # the same four at an address that is not 16-byte aligned
+    (((7, 1, 3, 5), (5, 5, 7, 11), (3, 16, 81, 4), (3000, 1, 2, 2)), True),
+], ids=["products", "odd_rows", "misaligned"])
+def test_rowwise_adagrad_kernel_matches_plain(cuda, shapes, misaligned):
+    """One accumulator per p-row: the kernel's core change and accumulators
+    within 1e-5 of the plain version's (the row's sum of g^2 in another
+    order; the update's roundings are the plain version's), twice in a row
+    so that a nonzero accumulator is read back."""
+    cores = [rowwise_cores(s, cuda, misaligned) for s in shapes]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    got_c, want_c = [c.clone() for c in cores], [c.clone() for c in cores]
+    got_a = [torch.rand(c.shape[:1], generator=gen, device=cuda) for c in cores]
+    want_a = [a.clone() for a in got_a]
+    tt_kernels.reset_launch_counts()
+    for step in range(2):
+        grads = [torch.randn(c.shape, generator=gen, device=cuda) for c in cores]
+        tt_adagrad_apply(got_c, got_a, grads, 0.01, 1e-8, rowwise=True)
+        tt_kernels.tt_adagrad_plain(want_c, want_a, grads, 0.01, 1e-8, rowwise=True)
+        for k, old in enumerate(cores):
+            assert rel_err(got_c[k] - old, want_c[k] - old) <= 1e-5, (step, k)
+            assert rel_err(got_a[k], want_a[k]) <= 1e-5, (step, k)
+    assert tt_kernels.launch_counts()["tt_adagrad_apply[rowwise]"] == 2
+
+
+# ------------------------------------------------------- --mode puregpu
+def test_device_sampler_on_card(cuda):
+    """The in-step samplers on the card: ids in range, each an in-neighbour
+    of its parent (the parent itself when isolated), the highest-degree
+    node's draws within the 4-sigma binomial bound, the table's draws over
+    its row's slots alike, and nothing read back to the host while they
+    sample (sync debug mode raises on a synchronising call)."""
+    from falcon_ttdforgnns_torch.graph import device_sampler as S
+    from falcon_ttdforgnns_torch.graph import hard_synthetic_dataset
+    g = hard_synthetic_dataset(num_nodes=2000, avg_degree=5, num_classes=4,
+                               feat_dim=16, seed=0).graph
+    indptr = torch.tensor(g.indptr, dtype=torch.int32, device=cuda)
+    indices = torch.tensor(g.indices, dtype=torch.int32, device=cuda)
+    table_np = S.build_neighbor_table(g.indptr, g.indices, 16, 0)
+    table = torch.tensor(table_np, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    seeds = torch.arange(0, 2000, 7, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        blocks = {"csr": S.device_sample_block(indptr, indices, seeds, (3, 4), gen),
+                  "table": S.device_sample_block_table(table, seeds, (3, 4), gen)}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for name, layers in blocks.items():
+        assert [tuple(l.shape) for l in layers] == [(len(seeds), 4), (len(seeds), 12)]
+        prev = seeds.cpu().numpy().reshape(-1, 1)
+        for f, lay in zip((4, 3), layers):
+            lay = lay.cpu().numpy()
+            assert lay.dtype == np.int32 and lay.min() >= 0 and lay.max() < g.num_nodes
+            for p, row in zip(prev.reshape(-1), lay.reshape(-1, f)):
+                neigh = g.indices[g.indptr[p]:g.indptr[p + 1]]
+                allowed = set(neigh.tolist()) if len(neigh) else {int(p)}
+                assert set(row.tolist()) <= allowed, (name, p)
+            prev = lay
+    v = int(np.argmax(np.diff(g.indptr)))
+    node = torch.tensor([v], dtype=torch.int32, device=cuda)
+    for draws, pool in (
+            (S.device_sample_neighbors(indptr, indices, node, 8192, gen),
+             g.indices[g.indptr[v]:g.indptr[v + 1]]),
+            (S.device_sample_block_table(table, node, (8192,), gen)[0], table_np[v])):
+        draws = draws.cpu().numpy().reshape(-1)
+        uniq, mult = np.unique(pool, return_counts=True)
+        counts = np.bincount(np.searchsorted(uniq, draws), minlength=len(uniq))
+        p = mult / len(pool)
+        assert set(np.unique(draws).tolist()) <= set(uniq.tolist())
+        assert (np.abs(counts - len(draws) * p) < 4 * np.sqrt(len(draws) * p * (1 - p)) + 1).all()
+
+
+@pytest.mark.parametrize("kw,launched", [
+    (dict(bf16=True), ("tt_fwd[bf16]", "tt_grads[bf16]", "tt_adam_apply")),
+    (dict(tt_optimizer="rowwise_adagrad", sampler="table", table_width=8),
+     ("tt_fwd", "tt_grads", "tt_adagrad_apply[rowwise]")),
+], ids=["bf16", "rowwise_adagrad_table"])
+def test_puregpu_epoch_on_card(cuda, kw, launched):
+    """--mode puregpu --sparse: an epoch of 4 steps on the card launches the
+    path's kernels once a step, sorts the ids once a step, and a step after
+    the first makes no host sync (sync debug mode)."""
+    import dataclasses
+    tr = tiny_trainer(sparse=True, mode="puregpu", steps_per_call=2, **kw)
+    tr.ds = dataclasses.replace(tr.ds, train_idx=tr.ds.train_idx[:256])
+    tt_kernels.reset_launch_counts()
+    stats = tr.train_epoch(0)
+    assert np.isfinite(stats["loss"]) and tr.step == 4
+    assert {k: v for k, v in tt_kernels.launch_counts().items() if v} == dict.fromkeys(
+        launched, 4)
+    assert tt_kernels.sort_count() == 4
+    seeds = torch.tensor(tr.ds.train_idx[:64].astype(np.int32), device=cuda)
+    labels = torch.tensor(tr.ds.labels[tr.ds.train_idx[:64]].astype(np.int32), device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = tr.device_train_step(seeds, labels)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(loss))

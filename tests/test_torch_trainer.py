@@ -6,12 +6,15 @@ differ), its variables are loaded into the port's trainer, and both step
 functions take the same host-sampled batches for 3 steps: with --sparse
 (each fused core update: Pallas in interpret mode against the plain
 versions) and without it (each routed core optimizer), in f32 and with the
-bf16 tower.  Then evaluate() on the same weights.  Also: the plateau's
-auto-off under bf16, the CLI on the CPU, the device rule, and that the
-port never imports JAX.
+bf16 tower.  Then evaluate() on the same weights.  ``--mode puregpu``:
+the step on device-sampled layers against the mixed step and the JAX step
+body on the same layers, and the epoch's seeds and labels against the JAX
+trainer's.  Also: the plateau's auto-off under bf16, the CLI on the CPU,
+the device rule, and that the port never imports JAX.
 """
 
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -210,7 +213,7 @@ def test_fit_runs_and_reports(datasets):
     assert 0.0 <= res["best"]["test_acc"] <= 1.0
 
 
-@pytest.mark.parametrize("kw", [dict(mode="puregpu"), dict(cache_size=8), dict(grouped=True),
+@pytest.mark.parametrize("kw", [dict(use_tt=False), dict(cache_size=8), dict(grouped=True),
                                 dict(eval_sampled=True), dict(use_sample=False)])
 def test_unported_options_raise(datasets, kw):
     with pytest.raises(NotImplementedError):
@@ -305,3 +308,164 @@ def test_port_never_imports_jax():
             "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', "
             "'falcon_ttdforgnns_tpu') for m in sys.modules), 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+# ---------------------------------------------------------------- puregpu
+def recording(tr, name):
+    """Wrap ``tr.<name>`` so that each call's result is kept, in order."""
+    kept, inner = [], getattr(tr, name)
+
+    def call(*args):
+        out = inner(*args)
+        kept.append(out)
+        return out
+
+    setattr(tr, name, call)
+    return kept
+
+
+def some_batches(ds, n, B=TINY["batch_size"]):
+    """n (seeds, labels) int32 tensors from a seeded order of the train ids."""
+    order = np.random.default_rng(5).permutation(ds.train_idx)
+    return [(torch.tensor(order[i * B:(i + 1) * B].astype(np.int32)),
+             torch.tensor(ds.labels[order[i * B:(i + 1) * B]].astype(np.int32)))
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("sampler", ["csr", "table"])
+def test_puregpu_step_is_the_mixed_step_on_its_layers(datasets, sampler):
+    """A puregpu step (sample on the device, then the step body) equals a
+    mixed step fed the layers it sampled, bit for bit on the CPU, dropout
+    on: the sampler's generator is not the dropout generator's."""
+    ds = datasets[0]
+    kw = dict(TINY, dropout=0.5, sparse=True, sampler=sampler, table_width=8)
+    pure = SageTrainer(ds, TrainConfig(mode="puregpu", **kw), device="cpu")
+    mixed = SageTrainer(ds, TrainConfig(**kw), device="cpu")
+    layers = recording(pure, "sample_layers")
+    for i, (seeds, labels) in enumerate(some_batches(ds, 3)):
+        lp, ap = pure.device_train_step(seeds, labels)
+        lm, am = mixed.train_step(seeds, [l.numpy() for l in layers[i]], labels.numpy())
+        assert torch.equal(lp, lm) and torch.equal(ap, am)
+    for a, b in zip(pure.model.parameters(), mixed.model.parameters()):
+        assert torch.equal(a, b)
+    for a, b in zip(pure.tt_opt.m + pure.tt_opt.v, mixed.tt_opt.m + mixed.tt_opt.v):
+        assert torch.equal(a, b)
+
+
+def test_three_puregpu_steps_match_jax(datasets):
+    """Three --mode puregpu --sparse steps against the JAX step body
+    (``_step_fn``) fed the layers the port sampled, at the tolerances of
+    test_three_sparse_steps_match_jax."""
+    ds, jds = datasets
+    jtr = JaxTrainer(jds, JaxConfig(sparse=True, steps_per_call=1, **TINY))
+    tr = SageTrainer(ds, TrainConfig(mode="puregpu", sparse=True, **TINY), device="cpu")
+    load_jax_variables(tr, jax.tree.map(np.asarray, jtr.variables))
+    layers = recording(tr, "sample_layers")
+    for i, (seeds, labels) in enumerate(some_batches(ds, 3)):
+        loss, _ = tr.device_train_step(seeds, labels)
+        jtr.variables, jtr.opt_state, jl, _ = jtr._step_fn(
+            jtr.variables, jtr.opt_state, jnp.asarray(seeds.numpy()),
+            [jnp.asarray(l.numpy()) for l in layers[i]], jnp.asarray(labels.numpy()),
+            jax.random.PRNGKey(0))
+        assert float(loss) == pytest.approx(float(jl), rel=1e-5)
+    check_params(jtr, tr)
+    assert int(tr.tt_opt.count) == 3
+
+
+@pytest.mark.parametrize("steps_per_call", [1, 2])
+def test_puregpu_epoch_seeds_and_labels_match_jax(datasets, steps_per_call):
+    """The puregpu epoch's seeds and labels, step for step, are the JAX
+    trainer's (_train_epoch_device, recorded at its _device_multi_fn, which
+    is not run) on 300 train ids: ragged at both group sizes, the tail
+    wrapped around the epoch's order; and its step count."""
+    ds, jds = datasets
+    ds = dataclasses.replace(ds, train_idx=ds.train_idx[:300])
+    jds = dataclasses.replace(jds, train_idx=jds.train_idx[:300])
+    kw = dict(TINY, mode="puregpu", steps_per_call=steps_per_call, sparse=True)
+    jtr = JaxTrainer(jds, JaxConfig(**kw))
+    packs = []
+
+    def record(variables, opt_state, packed, *rest):
+        packs.append(np.asarray(packed))
+        return variables, opt_state, jnp.float32(0), jnp.float32(0)
+
+    jtr._device_multi_fn = record
+    tr = SageTrainer(ds, TrainConfig(**kw), device="cpu")
+    seen = []
+    inner = tr.device_train_step
+
+    def keep(seeds, labels):
+        seen.append((seeds.numpy().copy(), labels.numpy().copy()))
+        return inner(seeds, labels)
+
+    tr.device_train_step = keep
+    epoch = 1
+    jtr._train_epoch_device(epoch)
+    stats = tr.train_epoch(epoch)
+    want = [p[i] for p in packs for i in range(steps_per_call)]
+    assert len(seen) == len(want) == tr.step
+    assert tr.step == -(-300 // (64 * steps_per_call)) * steps_per_call
+    for (seeds, labels), w in zip(seen, want):
+        np.testing.assert_array_equal(seeds, w[:, 0])
+        np.testing.assert_array_equal(labels, w[:, 1])
+    assert np.isfinite(stats["loss"])
+
+
+@pytest.mark.parametrize("sampler", ["csr", "table"])
+def test_puregpu_epoch_trains(datasets, sampler):
+    """An epoch of --mode puregpu --sparse --bf16 trains under each
+    sampler: finite loss, the cores and dense params move, the graph (and
+    the table, of the JAX package's shape and bits) placed once."""
+    ds = dataclasses.replace(datasets[0], train_idx=datasets[0].train_idx[:256])
+    cfg = TrainConfig(mode="puregpu", sparse=True, bf16=True, sampler=sampler,
+                      table_width=16, steps_per_call=2, **TINY)
+    tr = SageTrainer(ds, cfg, device="cpu")
+    assert tr._indptr_dev.dtype == tr._indices_dev.dtype == torch.int32
+    if sampler == "table":
+        assert tuple(tr._table_dev.shape) == (ds.num_nodes, 16)
+        from falcon_ttdforgnns_tpu.graph.device_sampler import build_neighbor_table
+        np.testing.assert_array_equal(tr._table_dev.numpy(), build_neighbor_table(
+            ds.graph.indptr, ds.graph.indices, 16, cfg.seed))
+    else:
+        assert tr._table_dev is None
+    before = [p.detach().clone() for p in tr.model.parameters()]
+    stats = tr.train_epoch(0)
+    assert np.isfinite(stats["loss"]) and tr.step == 4
+    assert all(not torch.equal(a, b) for a, b in zip(before, tr.model.parameters()))
+
+
+def test_puregpu_graph_guard_raises(datasets):
+    """A graph of 2^31 edges or more cannot be placed as int32: it raises
+    NotImplementedError before anything is placed (a stub graph that only
+    claims the edge count)."""
+    class Huge:
+        num_nodes, num_edges = 2000, 2**31
+
+    ds = dataclasses.replace(datasets[0], graph=Huge())
+    with pytest.raises(NotImplementedError, match="2\\^31"):
+        SageTrainer(ds, TrainConfig(mode="puregpu", **TINY), device="cpu")
+
+
+def test_rbg_rng_impl_is_accepted_and_inert(datasets, capsys):
+    """--rng-impl rbg names the TPU's generator: accepted, one line says
+    it is inert, and the samples are the threefry run's."""
+    ds = dataclasses.replace(datasets[0], train_idx=datasets[0].train_idx[:64])
+    runs = []
+    for impl in ("threefry", "rbg"):
+        tr = SageTrainer(ds, TrainConfig(mode="puregpu", rng_impl=impl, steps_per_call=1,
+                                         **TINY), device="cpu")
+        runs.append(recording(tr, "sample_layers"))
+        tr.train_epoch(0)
+    assert len(runs[0]) == len(runs[1]) == 1
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    assert capsys.readouterr().err.count("--rng-impl rbg") == 1
+
+
+def test_cli_puregpu_runs_on_cpu(capsys, tmp_path):
+    from falcon_ttdforgnns_torch import cli
+    cli.main(["--device", "cpu", "--dataset", "hard-ogbn-arxiv", "--synthetic-scale",
+              "0.004", "--num-hidden", "16", "--num-layers", "2", "--fan-out", "3,3",
+              "--batch", "64", "--tt-rank", "4,4", "--epochs", "1", "--log-dir",
+              str(tmp_path), "--mode", "puregpu", "--sparse", "--bf16", "--sampler", "table",
+              "--table-width", "8", "--steps-per-call", "4"])
+    assert '"best"' in capsys.readouterr().out

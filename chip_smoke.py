@@ -4,9 +4,15 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the CUDA kernels from csrc/ (one nvcc per source, all at once)
-   and times the build; profiles one B8 call on a random graph (one
-   memset and one kernel, nothing else);
+2. builds the CUDA kernels and the native host runtime from csrc/ (one
+   nvcc per CUDA source and the host compiler for falcon_native.cpp, all
+   at once) and times the build; profiles one B8 call on a random graph
+   (one memset and one kernel, nothing else); builds the full-size
+   hard-ogbn-products graph (the native CSR builder); after step 5 and
+   the flagship's phases of step 6, starts its --partition 128 (the native
+   k-way partitioner) in a thread, and --partition -1 and -4 on the
+   full-size hard-ogbn-arxiv graph in a process, beside step 4, which
+   times nothing;
 3. holds each TT kernel (and each variant: bf16 store, stochastically
    rounded store, bf16 d_out, SGD, adagrad, rowwise adagrad) against its
    plain PyTorch version at the main path's shapes (ogbn-products TT
@@ -25,13 +31,20 @@
    --bf16 --sparse, --bf16 --bf16-sr --sparse and each --tt-optimizer, and
    3 full-graph steps of GCN (--spmm xla and blocked) and GAT; and 3
    --mode puregpu steps sampled on the card (--sampler csr in f32, --sampler
-   table under --bf16), whose layers the CPU trainer's steps take;
+   table under --bf16), whose layers the CPU trainer's steps take; and
+   (d) the cache's lifecycle (3 warmup steps, the populate from the host
+   counts, 3 cached steps) in f32 and under --bf16: the same ids cached,
+   the parameters within tolerance;
 5. trains full-graph GCN (--spmm xla, --spmm blocked) and GAT at full
    width (3 layers x 256, GAT 3 heads) on the full-size hard-ogbn-arxiv
    graph, 3 steps each with the launch counters zeroed before and read
    after, then evaluate(); the blocked losses are held to the xla ones;
-6. trains the full-width SAGE 3x256 on the full-size hard-ogbn-products
-   graph.  The main path, --mode puregpu --bf16 --sparse (the CSR on the
+6. (a) the orderings: host seconds of --partition 0, -2 (RCMK), -3
+   (degree) and 128 at products and of -1, -4 at arxiv; one flagship
+   batch's ids relabelled by each ordering, and uniform random ids beside
+   them: distinct ids, prefix runs, tt_fwd and tt_grads ms.  Then trains
+   the full-width SAGE 3x256 on the full-size hard-ogbn-products
+   graph.  The flagship, --mode puregpu --bf16 --sparse (the CSR on the
    card, sampling in the step, bf16 kernel I/O, fused Adam): an epoch of 5
    steps through train_epoch with the launch counters zeroed before and
    read after (and the update's argument-cache misses: at most the first
@@ -52,7 +65,19 @@
    --sparse --tt-optimizer sgd|adagrad (host-sampled) and
    rowwise_adagrad (--mode puregpu), 2 f32 --sparse steps, 2 f32 steps
    without --sparse (TTLookup's backward kernel), and full-graph
-   evaluate() in f32 and under bf16;
+   evaluate() in f32 and under bf16.  (b) The slice's path, the README's
+   final-p (--partition 128 --use-cached --cache-size 100000, f32 routed
+   Adam, --mode mixed through the native sampler; the native sampler's ms
+   a batch beside the numpy sampler's), counted from its warmup epoch to
+   its evaluate(): 40 warmup steps counted by the host loader, the
+   populate (its ids the top 100,000 of the counts, its rows held to the
+   plain chain; the warmup steps' host time cut into sampling, access
+   counting and the step's call), 10 cached steps on fresh seeds with
+   their hit shares,
+   evaluate(); then the same warmup and cached batches without the cache,
+   ms a step against the cached.  (c) The puregpu flagship with the cache
+   (--use-cached --cache-size 100000): a warmup epoch counted on the card,
+   the populate from those counts, a cached epoch, each counted;
 7. evaluate() of the f32 weights through --spmm pallas (B7) and --spmm
    blocked (B9): the host tiling timed apart, the accuracies held to the
    xla route's;
@@ -63,8 +88,10 @@
    memory to its output's;
 9. prints the per-kernel JSON line, then the device line.
 
-Step 3 runs in a process of its own, after step 6's main path and its
-profile (see main()).
+The steps run in the order 1, 2, 5, step 6's flagship phases (the main
+path and --sampler table), then 4 beside the orderings, 6 (a)-(c), 3 in a
+process of its own (after the main path's profile, see main()), the rest
+of 6, 7, 8 and 9: no host-timed phase runs beside the orderings.
 
 Exits non-zero, before printing any result, without a CUDA device or
 outside a checkout of the repository; any failed check raises.
@@ -118,6 +145,11 @@ STEPS_FULL = 3       # full-graph GCN/GAT steps at full width
 FULL_GRAPH_OUTLIERS = 1e-3  # share of parameters past 3e-3 lr, card vs CPU (small_full_graph_check)
 FLAT_ADAM_TOL = 0.05  # x lr, card vs CPU after 3 steps, where Adam's step was not normalised (adam_flat)
 SPMM_ROUTE_ACC = 1e-3  # --spmm pallas|blocked accuracies against xla's (argmax near-ties)
+CACHE_K = 100_000          # final-p's --cache-size
+FINAL_P_WARMUP = 40        # final-p's warmup steps (epoch 0), counted by the host loader
+FINAL_P_CACHED = 10        # its cached steps (epoch 1), on seeds the warmup did not draw
+PUREGPU_CACHE_STEPS = 5    # the puregpu flagship with the cache: steps an epoch
+IDS_PER_STEP = 1024 * (1 + 15 + 15 * 10 + 15 * 10 * 5)  # 937,984 at fan-out 5,10,15
 TT_SOURCE = "falcon_ttdforgnns_torch/csrc/tt_kernels.cu"
 SPMM_SOURCE = "falcon_ttdforgnns_torch/csrc/spmm_kernels.cu"
 TT_PALLAS = "falcon_ttdforgnns_tpu/ops/tt_pallas.py"
@@ -625,8 +657,8 @@ def hold_loss(kw, step, on_card, on_cpu, bf16: bool) -> None:
                              f"vs on the CPU {float(on_cpu)}")
 
 
-def hold_params(kw, gpu, cpu, bf16: bool, flat=None) -> None:
-    """small_step_check's parameter tolerances after 3 steps.  In f32,
+def hold_params(kw, gpu, cpu, bf16: bool, flat=None, steps: int = 3) -> None:
+    """small_step_check's parameter tolerances after `steps` steps.  In f32,
     `flat` (from adam_flat) may name, per parameter, the elements whose
     Adam step was not normalised on either side: those are held to
     FLAT_ADAM_TOL instead of 3e-3 lr."""
@@ -650,7 +682,7 @@ def hold_params(kw, gpu, cpu, bf16: bool, flat=None) -> None:
             ok = ok and ferr <= FLAT_ADAM_TOL * LR
             what += (f" but for {sum(int(f.sum()) for f in flat)} elements with an unnormalised "
                      f"Adam step: {past} past it, max {ferr:.3e} (tol {FLAT_ADAM_TOL * LR:.1e})")
-    log(f"  tiny graph {kw}: 3 steps, loss ok, {what} {'ok' if ok else 'FAILED'}")
+    log(f"  tiny graph {kw}: {steps} steps, loss ok, {what} {'ok' if ok else 'FAILED'}")
     if not ok:
         raise AssertionError(f"{kw}: params disagree")
 
@@ -1192,26 +1224,49 @@ def b8_profile_check(dev) -> None:
         raise AssertionError("one B8 call: no complete profile to check")
 
 
-def in_own_process(here: str, phase: str):
-    """chip_smoke.<phase>(cuda) in a process of its own, whose output is
-    logged; raises if it failed.  Returns what the phase returned, passed
-    back as JSON on a line of its own.  Its torch.profiler sessions are then
-    that process's first: on the H100, sessions taken after others in a
-    process have lost device records of the port's kernels (PERF.md §7)."""
+CHILDREN = []  # the processes start_own_process started, stopped when the script ends
+
+
+def start_own_process(here: str, phase: str) -> subprocess.Popen:
+    """chip_smoke.<phase>(cuda) started in a process of its own (see
+    in_own_process); finish_own_process waits for it."""
     code = ("import json, torch, chip_smoke; "
             "torch.backends.cuda.matmul.allow_tf32 = False; "
             f"print('RESULT ' + json.dumps(chip_smoke.{phase}(torch.device('cuda'))))")
-    out = subprocess.run([sys.executable, "-c", code], cwd=here, capture_output=True,
-                         text=True, timeout=600)
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(proc)
+    return proc
+
+
+def finish_own_process(proc: subprocess.Popen, phase: str):
+    """Wait for a phase of start_own_process, log its output, raise if it
+    failed; returns what the phase returned, passed back as JSON on a line
+    of its own."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
     result = None
-    for line in out.stdout.splitlines():
+    for line in out.splitlines():
         if line.startswith("RESULT "):
             result = json.loads(line[len("RESULT "):])
         else:
             log(line)
-    if out.returncode != 0 or not any(l.startswith("RESULT ") for l in out.stdout.splitlines()):
-        raise AssertionError(f"{phase} failed in its own process:\n{out.stderr[-3000:]}")
+    if proc.returncode != 0 or not any(l.startswith("RESULT ") for l in out.splitlines()):
+        raise AssertionError(f"{phase} failed in its own process:\n{err[-3000:]}")
     return result
+
+
+def in_own_process(here: str, phase: str):
+    """chip_smoke.<phase>(cuda) in a process of its own, whose output is
+    logged; raises if it failed.  Returns what the phase returned.  Its
+    torch.profiler sessions are then that process's first: on the H100,
+    sessions taken after others in a process have lost device records of
+    the port's kernels (PERF.md §7)."""
+    return finish_own_process(start_own_process(here, phase), phase)
 
 
 def b8_memory_check(call, out_bytes: int) -> None:
@@ -1461,6 +1516,346 @@ def table_phase(ds, config, dev, counts) -> None:
     torch.cuda.empty_cache()
 
 
+def start_partition(graph, k: int):
+    """--partition k of `graph` in a thread (the native partitioner runs
+    without the GIL), beside the phases that follow: (thread, result), and
+    after the thread ends result holds "perm" and "s", its host seconds, or
+    "error", which join_partition raises."""
+    import threading
+    from falcon_ttdforgnns_torch.graph import reorder
+    result = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            result["perm"] = reorder.reorder_permutation(graph, k, seed=0)
+        except Exception as e:  # raised again by join_partition, in the main thread
+            result["error"] = e
+        result["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th, result
+
+
+def join_partition(job) -> tuple:
+    """Wait for start_partition's thread: (permutation, host seconds)."""
+    th, result = job
+    th.join()
+    if "error" in result:
+        raise result["error"]
+    return result["perm"], result["s"]
+
+
+def arxiv_orderings(dev):
+    """Step (a) at arxiv: --partition -1 (recursive, matched to the arxiv
+    preset's p-shapes) and -4 (label propagation, then k-way within
+    clusters) on the full-size hard-ogbn-arxiv graph, host seconds; run in a
+    process of its own beside the products orderings.  Both loop in Python
+    over segments and nodes and do not finish at products size in either
+    package."""
+    from falcon_ttdforgnns_torch.graph import get_dataset, reorder
+    ds = get_dataset("hard-ogbn-arxiv", seed=0)
+    secs = {}
+    for code in (-1, -4):
+        t0 = time.perf_counter()
+        perm = reorder.reorder_permutation(ds.graph, code, levels=list(ARXIV["p_shapes"]),
+                                           seed=0)
+        secs[code] = time.perf_counter() - t0
+        if not np.array_equal(np.sort(perm), np.arange(ds.num_nodes)):
+            raise AssertionError(f"--partition {code} gave no permutation")
+        log(f"  --partition {code} on hard-ogbn-arxiv ({ds.num_nodes} nodes, "
+            f"{ds.graph.num_edges} edges): {secs[code]:.1f} s on the host")
+    return secs
+
+
+def orderings_phase(ds0, perms: dict, K, dev) -> None:
+    """Step (a), the locality each ordering buys the port's own kernels: one
+    flagship batch (1024 seeds, fan-out 5,10,15) sampled on the products
+    graph in its generator's order, relabelled by each ordering's
+    permutation (a relabelled sample of a graph is a sample of the
+    relabelled graph), and beside them as many uniform random ids: the
+    distinct ids and prefix runs that set tt_fwd's and tt_grads' work, and
+    their loop ms (f32, the sort given; the sort apart)."""
+    import torch
+    from falcon_ttdforgnns_torch.graph import sampler
+    from falcon_ttdforgnns_torch.ops import tt_init
+    from falcon_ttdforgnns_torch.ops.tt_shapes import make_tt_shapes
+    shapes = make_tt_shapes(ds0.num_nodes, 100, (16, 16), (125, 140, 140), (5, 5, 4))
+    cores = [torch.tensor(c, device=dev)
+             for c in tt_init.init_tt_cores(shapes, "approx-normal", 0)]
+    rng = np.random.default_rng(3)
+    # the flagship's batch, and one of 16 seeds: 17,500 prefixes, so a
+    # batch of 937,984 ids may touch every one of them whatever the order
+    for n_seeds in (1024, 16):
+        ids0 = sampler.sample_block(ds0.graph, rng.choice(ds0.train_idx, n_seeds, replace=False),
+                                    (5, 10, 15), rng).all_nodes.astype(np.int64)
+        d = torch.randn((len(ids0), shapes.embedding_dim),
+                        generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+        log(f"  one batch of {n_seeds} seeds, {len(ids0)} ids:")
+        rows = [("the generator's order", ids0),
+                *((f"--partition {code}", perm[ids0]) for code, perm in perms.items()),
+                ("uniform random ids", rng.integers(0, ds0.num_nodes, len(ids0)))]
+        for label, ids in rows:
+            t = torch.tensor(ids.astype(np.int32), device=dev)
+            walk = K.grouped_counts(shapes, t)
+            order = K.grouped_order(t)
+            fwd = cuda_ms(lambda: K.tt_fwd(shapes, cores, t, order=order), 10)
+            grads = cuda_ms(lambda: K.tt_grads(shapes, cores, t, d, order=order), 10)
+            srt = cuda_ms(lambda: K.grouped_order(t), 10)
+            log(f"    {label}: {walk['distinct']} distinct ids, {walk['prefix_runs']} prefix "
+                f"runs; tt_fwd {fwd:.4f} ms, tt_grads {grads:.4f} ms a call (f32, the sort "
+                f"given), the sort {srt:.4f} ms")
+
+
+def top_k_ids(freq: np.ndarray, k: int) -> np.ndarray:
+    """The id table a populate should build from the counts `freq`: the k
+    most counted ids, the lower id first among equal counts
+    (jax.lax.top_k's order), -1 where the count is 0, sorted."""
+    top = np.argsort(-freq.astype(np.int64), kind="stable")[:k]
+    return np.sort(np.where(freq[top] > 0, top, -1))
+
+
+def hit_shares(meta, id_batches) -> list:
+    """The share of each batch's ids that the cache serves."""
+    from falcon_ttdforgnns_torch.ops import cache
+    return [float(cache.lookup(meta, ids)[0].float().mean()) for ids in id_batches]
+
+
+def checked_populate(trainer, label: str, freq: np.ndarray, K) -> float:
+    """trainer.maybe_populate_cache(), timed: raise unless the id table is
+    the top CACHE_K of `freq` and the rows, from tt_fwd in chunks, agree with
+    the plain chain's (TOL["tt_fwd"]).  Returns the seconds."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.maybe_populate_cache()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    emb = trainer.model.embed
+    ids = emb.cache_ids
+    if not np.array_equal(ids.cpu().numpy(), top_k_ids(freq, CACHE_K)):
+        raise AssertionError(f"{label}: the cached ids are not the {CACHE_K} most counted")
+    log(f"  {label} populate: {secs:.3f} s, {int((ids >= 0).sum())} rows, the least "
+        f"cached count {int(freq[int(ids[ids >= 0][0])]) if bool((ids >= 0).any()) else 0}")
+    check(f"{label} populate", [("rows", emb.cache_weight.detach(), K.tt_fwd_plain(
+        trainer.shapes, [c.detach() for c in trainer.cores], torch.clamp(ids, min=0)),
+        "tt_fwd")])
+    return secs
+
+
+def timed_methods(obj, names) -> dict:
+    """Wrap each named method of `obj` in an instance attribute that
+    appends each call's host ms to the returned dict's list for it;
+    `delattr(obj, name)` restores the class's method."""
+    spent = {n: [] for n in names}
+    for n in names:
+        def timed(*a, _fn=getattr(obj, n), _n=n, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                spent[_n].append((time.perf_counter() - t0) * 1e3)
+        setattr(obj, n, timed)
+    return spent
+
+
+def final_p_phase(ds, config, K, dev, counts) -> None:
+    """Step (b), the slice's path: the README's final-p (--partition 128
+    --use-cached --cache-size 100000, f32, routed Adam, --mode mixed through
+    the native sampler) on the 128-partitioned products graph.  With the
+    launch counters zeroed before and read after: FINAL_P_WARMUP warmup
+    steps through train_epoch (the host loader counting accesses), the
+    populate (its id table and rows checked), FINAL_P_CACHED cached steps on
+    fresh train seeds with each step's hit share, and evaluate() (hits read
+    from the cache).  Then a trainer without the cache takes the same
+    warmup and the same cached batches: ms a step with and without the
+    cache.  Before it all, the native sampler's ms a batch beside the numpy
+    sampler's, on this host and graph; the warmup steps' host time is cut
+    into the loader's sampling, its access counting, the train_step call
+    and the rest of the epoch loop."""
+    import torch
+    from falcon_ttdforgnns_torch.graph import sampler
+    from falcon_ttdforgnns_torch.train import SageTrainer
+    from falcon_ttdforgnns_torch.utils.metrics import access_percentages
+    W, C = FINAL_P_WARMUP, FINAL_P_CACHED
+    picks = np.random.default_rng(8).permutation(ds.train_idx)
+    warm, fresh = np.sort(picks[:W * 1024]), np.sort(picks[W * 1024:(W + C) * 1024])
+    rng = np.random.default_rng(9)
+
+    def sample_ms(n):
+        out = []
+        for _ in range(n):
+            seeds = rng.choice(ds.train_idx, 1024, replace=False)
+            t0 = time.perf_counter()
+            sampler.sample_block(ds.graph, seeds, (5, 10, 15), rng)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    native = sample_ms(5)
+    handle, sampler._native = sampler._native, None
+    try:
+        numpy_path = sample_ms(3)
+    finally:
+        sampler._native = handle
+    log(f"  host sampler, one batch of {IDS_PER_STEP} ids on the 128-partitioned graph: native "
+        f"{', '.join(f'{t:.1f}' for t in native)} ms, numpy "
+        f"{', '.join(f'{t:.1f}' for t in numpy_path)} ms")
+    cfg = config(cache_size=CACHE_K)
+    t0 = time.perf_counter()
+    tr = SageTrainer(dataclasses.replace(ds, train_idx=warm), cfg, device=dev)
+    log(f"  final-p trainer built in {time.perf_counter() - t0:.1f} s; {W} warmup steps on "
+        f"{W * 1024} random train seeds, then {C} cached steps on {C * 1024} others")
+    must = ("tt_fwd", "tt_grads")
+    reset_counts()
+    loader_ms = timed_methods(tr.loader, ("_make_batch", "_count"))
+    step_ms = timed_methods(tr, ("train_step",))
+    stats = tr.train_epoch(0)
+    warm_counts = launched()
+    for obj, names in ((tr.loader, loader_ms), (tr, step_ms)):
+        for n in names:
+            delattr(obj, n)
+    parts = {"sampling": loader_ms["_make_batch"], "access counting": loader_ms["_count"],
+             "the train_step call": step_ms["train_step"]}
+    wall = stats["epoch_time"] * 1e3 / W
+    rest = wall - sum(float(np.mean(v)) for v in parts.values())
+    log(f"  warmup steps' host time apart, mean (median; first step) ms a step of "
+        f"{wall:.1f}: " + ", ".join(f"{k} {np.mean(v):.2f} ({np.median(v):.2f}; {v[0]:.2f})"
+                                    for k, v in parts.items())
+        + f", the rest of the loop {rest:.2f} (the train_step call holds the host-to-device "
+        f"copies, which wait for the previous step's device work, and the launches)")
+    freq = tr.loader.freq.copy()
+    skew = list(access_percentages(freq).values())[:3]  # the hottest 1%, 5%, 10% of rows
+    log(f"  warmup epoch: {stats['epoch_time'] * 1e3 / W:.1f} ms a step (host sampling + "
+        f"step), {stats['samples_per_s']:.0f} seeds/s, loss {stats['loss']:.4f}; launches "
+        f"{warm_counts}; {int(freq.sum())} accesses counted on the host, the hottest 1%/5%/10% "
+        f"of rows serve {', '.join(f'{v:.1%}' for v in skew)}")
+    if int(freq.sum()) != W * IDS_PER_STEP or any(warm_counts.get(k) != W for k in must):
+        raise AssertionError(f"final-p warmup: {int(freq.sum())} accesses, launches {warm_counts}")
+    checked_populate(tr, "final-p", freq, K)
+    batches = [b for _, b in zip(range(C), sampler.NeighborLoader(
+        ds.graph, fresh, ds.labels, cfg.fanouts, cfg.batch_size, seed=1))]
+    hits = hit_shares(tr.model.embed.cache_meta, [collect_ids(b)[0].to(dev) for b in batches])
+    cached = train_steps(tr, batches, "final-p cached")
+    before_eval = launched()
+    log("  final-p evaluate() (hits read from the cache):")
+    _, eval_counts = checked_evaluate(tr, "final-p evaluate")  # zeroes the counts first
+    counts["final-p"] = {k: before_eval.get(k, 0) + eval_counts.get(k, 0)
+                         for k in {*before_eval, *eval_counts}}
+    log(f"  final-p launches, warmup to evaluate: {counts['final-p']}")
+    missing = [k for k in must if not counts["final-p"].get(k)]
+    if missing:
+        raise AssertionError(f"final-p: {missing} never launched")
+    log(f"  hit share of the cached steps: {', '.join(f'{h:.2%}' for h in hits)}")
+    del tr
+    plain = SageTrainer(dataclasses.replace(ds, train_idx=warm), config(), device=dev)
+    plain.train_epoch(0)
+    uncached = train_steps(plain, batches, "final-p without the cache")
+    del plain
+    torch.cuda.empty_cache()
+    c_ms = float(np.median([m for m, _ in cached]))
+    u_ms = float(np.median([m for m, _ in uncached]))
+    s_ms = float(np.median(native))
+    log(f"  does the cache pay: median step {c_ms:.2f} ms with it, {u_ms:.2f} ms without "
+        f"({c_ms / u_ms:.3f}x); with the native sampler's {s_ms:.1f} ms a batch, "
+        f"{1024 / (c_ms + s_ms) * 1e3:.0f} against {1024 / (u_ms + s_ms) * 1e3:.0f} seeds/s")
+
+
+def puregpu_cache_phase(ds, config, K, dev, counts) -> None:
+    """Step (c), the flagship with the cache: --mode puregpu --bf16 --sparse
+    --use-cached --cache-size 100000 (the fused update off, as JAX's
+    _want_fused_sparse decides; the lookup f32 through TTLookup), depth cut
+    to an epoch of PUREGPU_CACHE_STEPS steps: the warmup epoch, counted on
+    the card (device_freq), the populate from those counts, and a cached
+    epoch on fresh seeds, each with the counters zeroed before and read
+    after, and each cached step's hit share."""
+    import torch
+    from falcon_ttdforgnns_torch.models.sage import collect_level_ids
+    from falcon_ttdforgnns_torch.train import SageTrainer
+    S = PUREGPU_CACHE_STEPS
+    picks = np.random.default_rng(10).permutation(ds.train_idx)
+    warm, fresh = np.sort(picks[:S * 1024]), np.sort(picks[S * 1024:2 * S * 1024])
+    cfg = config(mode="puregpu", sparse=True, bf16=True, cache_size=CACHE_K,
+                 steps_per_call=S)
+    tr = SageTrainer(dataclasses.replace(ds, train_idx=warm), cfg, device=dev)
+    if tr.fused_sparse or not tr.model.embed.device_freq:
+        raise AssertionError("puregpu + cache: the update should be routed, the counts the card's")
+    must = ("tt_fwd", "tt_grads")
+    counts["puregpu cache warmup"] = counted_epoch(tr, 0, "puregpu cache warmup", must, S)
+    freq = tr.model.embed.cache_freq.cpu().numpy()
+    if int(freq.sum()) != S * IDS_PER_STEP:
+        raise AssertionError(f"puregpu cache: {int(freq.sum())} accesses counted on the card")
+    checked_populate(tr, "puregpu cache", freq, K)
+    tr.ds = dataclasses.replace(tr.ds, train_idx=fresh)
+    kept = tap_sampler(tr)
+    counts["puregpu cache"] = counted_epoch(tr, 1, "puregpu cache", must, S)
+    hits = hit_shares(tr.model.embed.cache_meta,
+                      [collect_level_ids(sd, ls)[0] for sd, ls in kept])
+    del tr.sample_layers, kept
+    log(f"  hit share of the cached steps: {', '.join(f'{h:.2%}' for h in hits)}")
+    del tr
+    torch.cuda.empty_cache()
+
+
+def small_cache_check(dev):
+    """Step (d): final-p's lifecycle on the card against the CPU (plain
+    versions) on a tiny graph, dropout off: 3 warmup steps, the populate
+    from the host counts, 3 cached steps, in f32 and under --bf16 (each
+    with --sparse, which the cache turns into the routed update).  The card
+    must cache the ids the CPU caches; the losses and parameters (the cache
+    rows too) are held as small_step_check holds them, f32 but for at most
+    FULL_GRAPH_OUTLIERS of each parameter's elements past 3e-3 lr, none
+    past FLAT_ADAM_TOL lr (Adam on a near-cancelled gradient element)."""
+    import torch
+    from falcon_ttdforgnns_torch.graph import hard_synthetic_dataset
+    from falcon_ttdforgnns_torch.train import SageTrainer, TrainConfig
+    ds = hard_synthetic_dataset(num_nodes=3000, avg_degree=6, num_classes=5,
+                                feat_dim=64, seed=1)
+    for kw in (dict(sparse=True, cache_size=512), dict(sparse=True, bf16=True, cache_size=512)):
+        cfg = TrainConfig(batch_size=128, fanouts=(3, 4), hidden_dim=32, num_layers=2,
+                          tt_ranks=(8, 8), dropout=0.0, seed=1, lr=LR, **kw)
+        gpu, cpu = SageTrainer(ds, cfg, device=dev), SageTrainer(ds, cfg, device="cpu")
+        batches = iter(cpu.loader)
+        hits = []
+        for step in range(6):
+            if step == 3:
+                gpu.loader.freq = cpu.loader.freq.copy()
+                gpu.maybe_populate_cache()
+                cpu.maybe_populate_cache()
+                if not torch.equal(gpu.model.embed.cache_ids.cpu(), cpu.model.embed.cache_ids):
+                    raise AssertionError(f"{kw}: the card caches other ids than the CPU")
+            b = next(batches)
+            if step >= 3:
+                hits += hit_shares(cpu.model.embed.cache_meta, [collect_ids(b)[0]])
+            lc, _ = cpu.train_step(b.seeds, b.layers, b.labels)
+            lg, _ = gpu.train_step(b.seeds, b.layers, b.labels)
+            hold_loss(kw, step, lg, lc, cfg.bf16)
+        log(f"  tiny graph {kw}: the same {int((cpu.model.embed.cache_ids >= 0).sum())} ids "
+            f"cached on both, hit shares {', '.join(f'{h:.1%}' for h in hits)}")
+        if cfg.bf16:
+            hold_params(kw, gpu, cpu, True, steps=6)
+            continue
+        offs = [(a.detach().cpu() - b.detach()).abs()
+                for a, b in zip(gpu.model.parameters(), cpu.model.parameters())]
+        tol = 3 * 1e-3 * LR
+        share = max(float((o > tol).float().mean()) for o in offs)
+        err = max(float(o.max()) for o in offs)
+        ok = share <= FULL_GRAPH_OUTLIERS and err <= FLAT_ADAM_TOL * LR
+        log(f"  tiny graph {kw}: 6 steps, loss ok, max param diff {err:.3e} (tol "
+            f"{FLAT_ADAM_TOL * LR:.1e}), largest share past {tol:.1e} {share:.2e} (tol "
+            f"{FULL_GRAPH_OUTLIERS:.0e}) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"{kw}: params on the card and on the CPU disagree")
+
+
+def collect_ids(batch):
+    """collect_level_ids of a host batch, on the CPU."""
+    import torch
+    from falcon_ttdforgnns_torch.models.sage import collect_level_ids
+    return collect_level_ids(torch.as_tensor(batch.seeds),
+                             [torch.as_tensor(l) for l in batch.layers])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1481,12 +1876,18 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
+    from falcon_ttdforgnns_torch.graph import _native
     from falcon_ttdforgnns_torch.ops import _build
     from falcon_ttdforgnns_torch.ops import tt_kernels as K
     t0 = time.perf_counter()
-    built = _build.build_all()  # one nvcc per source, all at once
+    # one compiler per source, all at once: nvcc for each CUDA source, the
+    # host compiler for the native runtime
+    built = _build.build_all(host=_build.HOST_SOURCES)
     for name in built:
-        _build.library(name)
+        if name in _build.HOST_SOURCES:
+            _native.library()
+        else:
+            _build.library(name)
     log(f"build: {time.perf_counter() - t0:.1f} s -> "
         f"{', '.join(os.path.relpath(so, here) for so, _ in built.values())}")
     for _, report in built.values():
@@ -1505,29 +1906,67 @@ def main() -> int:
     log("one B8 call, profiled:")
     in_own_process(here, "b8_profile_check")
     torch.cuda.empty_cache()
-    log("train step, card vs CPU:")
-    small_step_check(dev)
-    small_puregpu_check(dev)
-    small_full_graph_check(dev)
-    torch.cuda.empty_cache()
+
+    # the products graph, in its generator's order
+    from falcon_ttdforgnns_torch.graph import get_dataset, reorder_permutation
+    from falcon_ttdforgnns_torch.train import SageTrainer, TrainConfig
+    t0 = time.perf_counter()
+    ds0 = get_dataset("hard-ogbn-products", seed=0)
+    log(f"dataset {ds0.name}: {ds0.num_nodes} nodes, {ds0.graph.num_edges} edges, "
+        f"{time.perf_counter() - t0:.1f} s on the host (the native CSR builder)")
 
     log("full-graph GCN/GAT at full width (the arxiv recipe):")
     counts = {f"full-graph {k}": v for k, v in full_graph_phase(dev).items()}
     torch.cuda.empty_cache()
 
-    from falcon_ttdforgnns_torch.graph import get_dataset, reorder_permutation
-    from falcon_ttdforgnns_torch.train import SageTrainer, TrainConfig
+    perms = {}
     t0 = time.perf_counter()
-    ds = get_dataset("hard-ogbn-products", seed=0)
-    ds = ds.permute(reorder_permutation(ds.graph, 0, seed=0))
-    log(f"dataset {ds.name}: {ds.num_nodes} nodes, {ds.graph.num_edges} edges, "
-        f"{time.perf_counter() - t0:.1f} s on the host")
+    perms[0] = reorder_permutation(ds0.graph, 0, seed=0)
+    log(f"(a) --partition 0 on hard-ogbn-products: {time.perf_counter() - t0:.1f} s on the host")
+    ds = ds0.permute(perms[0])  # the flagship's --partition 0
 
     def config(**kw):
         return TrainConfig(p_shapes=(125, 140, 140), q_shapes=(5, 5, 4), lr=LR, **kw)
 
+    log("the flagship's phases (nothing else running on the host):")
     other_b = main_path_phase(ds, config, K, dev, counts)
     table_phase(ds, config, dev, counts)
+
+    # the two slow orderings start only after the phases whose host time is
+    # read: --partition 128 in a thread (the native partitioner, one core),
+    # -1 and -4 at arxiv in a process, beside the untimed checks of step 4
+    part_job = start_partition(ds0.graph, 128)
+    arxiv_job = start_own_process(here, "arxiv_orderings")
+    log("train step, card vs CPU (beside the --partition 128 thread and the arxiv orderings' "
+        "process; nothing here is timed):")
+    small_step_check(dev)
+    small_puregpu_check(dev)
+    small_full_graph_check(dev)
+    log("(d) the cache's lifecycle, card vs CPU:")
+    small_cache_check(dev)
+    torch.cuda.empty_cache()
+    log("(a) the orderings: host seconds at arxiv (-1 and -4, one process beside the "
+        "--partition 128 thread and step 4) and at products (128 in its thread beside the "
+        "arxiv process and step 4; -2 and -3 alone, after both)")
+    finish_own_process(arxiv_job, "arxiv_orderings")
+    t0 = time.perf_counter()
+    perms[128], part_s = join_partition(part_job)
+    log(f"  --partition 128 on hard-ogbn-products (native k-way): {part_s:.1f} s on the host, "
+        f"in its thread ({time.perf_counter() - t0:.1f} s waited for it here)")
+    for code in (-2, -3):
+        t0 = time.perf_counter()
+        perms[code] = reorder_permutation(ds0.graph, code, seed=0)
+        log(f"  --partition {code} on hard-ogbn-products: {time.perf_counter() - t0:.1f} s "
+            f"on the host")
+    log("(a) the locality of each ordering:")
+    orderings_phase(ds0, perms, K, dev)
+    ds128 = ds0.permute(perms[128])
+    del ds0, perms
+    log("(b) final-p on the 128-partitioned products graph:")
+    final_p_phase(ds128, config, K, dev, counts)
+    del ds128
+    log("(c) the puregpu flagship with the cache:")
+    puregpu_cache_phase(ds, config, K, dev, counts)
     # step 3, in a process of its own, whose profiler sessions (the updates'
     # device times) are its first; the main path's profile is this
     # process's first (in_own_process; PERF.md §7)
@@ -1574,7 +2013,7 @@ def main() -> int:
 
     # each kernel's launches come from the run of the path that drives it;
     # spmm_tiled[bf16] and spmm_tile_partials[, bf16] are on no trainer path
-    path_of = {"tt_fwd": "f32", "tt_grads": "f32", "tt_fwd[bf16]": "main",
+    path_of = {"tt_fwd": "final-p", "tt_grads": "final-p", "tt_fwd[bf16]": "main",
                "tt_grads[bf16]": "main", "tt_adam_apply": "main", "tt_fwd_sr": "sr",
                "tt_sgd_apply": "sgd", "tt_adagrad_apply": "adagrad",
                "tt_adagrad_apply[rowwise]": "rowwise",
@@ -1601,4 +2040,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    sys.exit(rc)

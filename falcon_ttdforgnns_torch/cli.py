@@ -32,8 +32,12 @@ def main(argv=None):
                                       f"ported yet (ROADMAP A7-A9)")
     if args.emb_name == "dense":
         args.use_tt = False
+    if args.emb_name == "eff":
+        logger.info("--emb-name eff is the tt lookup here: on the card tt_fwd and "
+                    "tt_grads already take each id prefix's chain once per run of "
+                    "sorted ids (Efficient_TT's dedup); the CPU runs the plain lookup")
 
-    from .graph import get_dataset, reorder_permutation
+    from .graph import get_dataset, reorder_permutation_cached
     from .train import FullGraphConfig, FullGraphTrainer, SageTrainer, TrainConfig
 
     t0 = time.time()
@@ -41,10 +45,14 @@ def main(argv=None):
                      seed=args.seed, official_split=args.official_split)
     logger.info(f"dataset {ds.name}: {ds.num_nodes} nodes, "
                 f"{ds.graph.num_edges} edges ({time.time() - t0:.1f}s)")
+    # --partition: 0 random, >0 k-way, -1 recursive, -2 RCMK, -3 degree,
+    # -4 louvain; cached on disk (./reorder_cache) keyed on the graph and flags
     t0 = time.time()
-    ds = ds.permute(reorder_permutation(ds.graph, args.partition,
-                                        levels=args.p_shapes, seed=args.seed))
-    logger.info(f"reorder partition={args.partition}: {time.time() - t0:.1f}s")
+    perm = reorder_permutation_cached(ds.graph, args.partition, levels=args.p_shapes,
+                                      seed=args.seed)
+    if perm is not None:
+        ds = ds.permute(perm)
+        logger.info(f"reorder partition={args.partition}: {time.time() - t0:.1f}s")
     precomputed = _maybe_init_cores(args, ds, logger)
 
     def run_once(tt_ranks):
@@ -87,7 +95,7 @@ def main(argv=None):
             sparse=args.sparse, batch_count=args.batch_count, spmm=args.spmm,
             mode=args.mode, sampler=args.sampler, table_width=args.table_width,
             rng_impl=args.rng_impl, num_workers=args.num_workers,
-            use_sample=args.use_sample, grouped=(args.emb_name == "eff"),
+            use_sample=args.use_sample,
             node_shard=args.node_shard, steps_per_call=args.steps_per_call,
             access_counts=args.access_counts and not args.use_tt,
             skip_eval=args.skip_eval, eval_sampled=args.eval_sampled,

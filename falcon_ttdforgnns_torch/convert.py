@@ -4,7 +4,8 @@
 numpy arrays (``jax.tree.map(np.asarray, variables["params"])``) — to a
 ``state_dict`` of :class:`~falcon_ttdforgnns_torch.models.sage.SAGE`:
 
-* ``params["embed"]["tt_core_k"]`` -> ``embed.tt_core_k``;
+* ``params["embed"]["tt_core_k"]`` -> ``embed.tt_core_k``, and
+  ``params["embed"]["cache_weight"]`` -> ``embed.cache_weight``;
 * ``params["conv_i"]["self"]["kernel"/"bias"]`` -> ``convs.i.lin_self``
   ``weight`` (transposed: flax keeps (in, out), ``nn.Linear`` (out, in))
   and ``bias``;
@@ -12,7 +13,13 @@ numpy arrays (``jax.tree.map(np.asarray, variables["params"])``) — to a
 
 ``load_jax_variables`` also carries the fused optimizer state
 ``variables["tt_opt"]`` into a trainer: the Adam moments and step count
-(``m_k``, ``v_k``, ``t``) or the adagrad accumulators (``acc_k``).
+(``m_k``, ``v_k``, ``t``) or the adagrad accumulators (``acc_k``); the
+hot-row cache's metadata ``variables["ttcache"]["embed"]["meta"]``
+(``freq``, ``ids``, ``ready``) -> the buffers ``embed.cache_freq``,
+``embed.cache_ids``, ``embed.cache_ready``; and, given as ``cache_acc``,
+the cache group's rowwise-adagrad accumulator, which the JAX trainer keeps
+in its optax state at
+``opt_state[0].inner_states["cache"].inner_state["embed"]["cache_weight"]``.
 
 ``full_graph_state_from_jax`` maps the variables of the JAX
 ``FullGraphModel`` (GCN or GAT; ``params`` and ``batch_stats``) to a
@@ -52,7 +59,7 @@ def _linear(out: Dict[str, torch.Tensor], name: str, dense: Dict) -> None:
 def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for name, arr in params["embed"].items():
-        if not name.startswith("tt_core_"):
+        if not (name.startswith("tt_core_") or name == "cache_weight"):
             raise ValueError(f"unsupported embedding param {name!r}")
         out[f"embed.{name}"] = torch.tensor(np.asarray(arr, np.float32))
     convs = sorted((n for n in params if n.startswith("conv_")),
@@ -70,13 +77,20 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
 
 
 @torch.no_grad()
-def load_jax_variables(trainer, variables: Dict) -> None:
+def load_jax_variables(trainer, variables: Dict, cache_acc=None) -> None:
     """Load JAX-initialised (or trained) variables into a port
-    :class:`SageTrainer`: the params, and the fused optimizer's state (Adam
-    moments and step count, or adagrad accumulators) when both sides carry
-    it."""
+    :class:`SageTrainer`: the params, the cache's metadata, and the fused
+    optimizer's state (Adam moments and step count, or adagrad
+    accumulators) when both sides carry it; ``cache_acc`` (K,) is the
+    cache group's accumulator."""
     state = params_from_jax(variables["params"])
+    if "ttcache" in variables:
+        meta = variables["ttcache"]["embed"]["meta"]
+        for field in ("freq", "ids", "ready"):
+            state[f"embed.cache_{field}"] = torch.tensor(np.asarray(getattr(meta, field)))
     trainer.model.load_state_dict(state, strict=True)
+    if cache_acc is not None:
+        trainer.cache_opt.acc.copy_(torch.tensor(np.asarray(cache_acc, np.float32)))
     tt_opt = variables.get("tt_opt")
     if tt_opt is None:
         return

@@ -1,11 +1,13 @@
 """Host-side graph container (CSR) and dataset plumbing.
 
-Port of ``falcon_ttdforgnns_tpu/graph/csr.py`` (numpy paths only; the
-native C++ CSR code is not copied yet).  The graph lives in host RAM as
-numpy CSR (the ``--mode mixed`` layout), samplers produce static-shape
-batches, and node "features" are the node ids — the TT embedding layer
-owns the features.  For the same seed the datasets equal the JAX
-package's bit for bit.
+Port of ``falcon_ttdforgnns_tpu/graph/csr.py``.  The graph lives in host
+RAM as numpy CSR (the ``--mode mixed`` layout), samplers produce
+static-shape batches, and node "features" are the node ids — the TT
+embedding layer owns the features.  Edge lists of more than 100K edges
+(without dedup) go to the native CSR builder, and R-MAT graphs of more
+than 500K edges to the native generator (``_native.py``), where the JAX
+package takes its native paths too; so for the same seed the datasets
+equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -49,7 +51,13 @@ class CSRGraph:
                    add_reverse: bool = True, dedup: bool = False) -> "CSRGraph":
         """Build in-neighbor CSR from an edge list.  ``add_reverse`` mirrors
         the reference's to-bidirected transform (`graphloader.py:170-180`).
-        Rows list their neighbors in the stable order of the edge list."""
+        Over 100K edges without dedup the threaded native builder runs and
+        sorts each row; below, rows list their neighbors in the stable order
+        of the edge list."""
+        if not dedup and len(src) > 100_000:
+            from . import _native
+            indptr, indices = _native.build_csr(src, dst, num_nodes, add_reverse)
+            return CSRGraph(indptr=indptr, indices=indices, num_nodes=num_nodes)
         if add_reverse:
             src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
         if dedup:
@@ -134,9 +142,13 @@ class NodeDataset:
 def rmat_edges(num_nodes: int, num_edges: int, seed: int = 0,
                a: float = 0.57, b: float = 0.19, c: float = 0.19) -> Tuple[np.ndarray, np.ndarray]:
     """R-MAT power-law edge generator (Graph500-style) — produces the skewed
-    degree distributions that make the LFU hot-row cache meaningful.
-    numpy only (minutes at products scale; the JAX package's native path
-    is not copied yet)."""
+    degree distributions that make the LFU hot-row cache meaningful.  Over
+    500K edges the native generator runs (numpy needs minutes at products
+    scale); its edges depend on the host's core count, as the JAX
+    package's do."""
+    if num_edges > 500_000:
+        from . import _native
+        return _native.rmat_edges(num_nodes, num_edges, seed, a, b, c)
     rng = np.random.default_rng(seed)
     scale = max(1, int(np.ceil(np.log2(num_nodes))))
     src = np.zeros(num_edges, dtype=np.int64)

@@ -8,8 +8,13 @@ the dense recursive-fanout formulation
   layer 2 neighbors:    (B, f1*f2)   ... etc.
 
 Sampling is uniform with replacement over in-neighbors; isolated nodes
-self-loop.  For the same generator seed the blocks equal the JAX package's
-numpy path bit for bit.
+self-loop.  The threaded native sampler (``_native.py``) draws the blocks,
+seeded from the generator exactly as the JAX package seeds its own native
+sampler, so for the same generator seed the blocks equal the JAX
+package's bit for bit.  The numpy path beside it is the JAX package's
+numpy path; it runs only where ``_native`` is set to None (the tests
+that hold it to JAX's).  The loader counts each id's accesses
+(``NeighborLoader.freq``), the host-side frequencies of the hot-row cache.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from . import _native
 from .csr import CSRGraph
 
 
@@ -40,6 +46,9 @@ def _sample_neighbors(graph: CSRGraph, nodes: np.ndarray, fanout: int,
                       rng: np.random.Generator) -> np.ndarray:
     """(M,) nodes -> (M, fanout) sampled in-neighbors (with replacement;
     self-loop for isolated nodes)."""
+    if _native is not None:
+        return _native.sample_neighbors(graph.indptr, graph.indices, nodes, fanout,
+                                        int(rng.integers(1, 2**31 - 1)))
     deg = graph.indptr[nodes + 1] - graph.indptr[nodes]          # (M,)
     offs = rng.integers(0, np.maximum(deg, 1)[:, None], size=(len(nodes), fanout))
     flat = graph.indices[np.minimum(graph.indptr[nodes][:, None] + offs,
@@ -52,10 +61,16 @@ def sample_block(graph: CSRGraph, seeds: np.ndarray, fanouts: Sequence[int],
     """Recursive fanout sampling.  ``fanouts`` is listed innermost-layer
     first like ``--fan-out 5,10,15``: the *last* fanout is used for the
     seeds' direct neighbors."""
+    rev = list(reversed(list(fanouts)))
+    if _native is not None:
+        layers = _native.sample_block_multi(graph.indptr, graph.indices,
+                                            seeds.astype(np.int64), rev,
+                                            int(rng.integers(1, 2**63 - 1)))
+        return SampledBatch(seeds=seeds.astype(np.int32), layers=layers)
     layers: List[np.ndarray] = []
     frontier = seeds.astype(np.int32)
     B = len(seeds)
-    for f in reversed(list(fanouts)):
+    for f in rev:
         nbrs = _sample_neighbors(graph, frontier.reshape(-1), f, rng)
         frontier = nbrs.reshape(B, -1)
         layers.append(frontier)
@@ -66,11 +81,14 @@ class NeighborLoader:
     """Minibatch iterator: shuffled seed batches -> SampledBatch.  Every
     step sees exactly ``batch_size`` seeds (the final ragged batch wraps
     around the epoch order).  With ``num_workers > 1`` batches are sampled
-    by a thread pool from per-batch child generators and yielded in order."""
+    by a thread pool from per-batch child generators and yielded in order.
+    With ``track_freq`` every yielded batch adds one to ``freq`` (int64,
+    one per node) for each of its ids, duplicates included: the LFU counts
+    of the hot-row cache, in the consuming thread."""
 
     def __init__(self, graph: CSRGraph, seed_nodes: np.ndarray, labels: np.ndarray,
                  fanouts: Sequence[int], batch_size: int, shuffle: bool = True,
-                 seed: int = 0, num_workers: int = 1):
+                 seed: int = 0, track_freq: bool = True, num_workers: int = 1):
         self.graph = graph
         self.seed_nodes = np.asarray(seed_nodes, dtype=np.int64)
         self.labels = labels
@@ -79,6 +97,8 @@ class NeighborLoader:
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
         self.num_workers = max(1, int(num_workers))
+        self.track_freq = track_freq
+        self.freq = np.zeros(graph.num_nodes, dtype=np.int64) if track_freq else None
 
     def __len__(self) -> int:
         return max(1, len(self.seed_nodes) // self.batch_size)
@@ -94,13 +114,20 @@ class NeighborLoader:
         batch.labels = self.labels[seeds].astype(np.int32)
         return batch
 
+    def _count(self, batch: SampledBatch) -> SampledBatch:
+        """Add the batch's accesses to ``freq``: the integers of the JAX
+        loader's ``np.add.at``, by one ``np.bincount``."""
+        if self.track_freq:
+            self.freq += np.bincount(batch.all_nodes, minlength=len(self.freq))
+        return batch
+
     def __iter__(self) -> Iterator[SampledBatch]:
         order = self.rng.permutation(len(self.seed_nodes)) if self.shuffle \
             else np.arange(len(self.seed_nodes))
         n_batches = len(self)
         if self.num_workers <= 1:
             for b in range(n_batches):
-                yield self._make_batch(self._batch_seeds(order, b), self.rng)
+                yield self._count(self._make_batch(self._batch_seeds(order, b), self.rng))
             return
         import concurrent.futures as _cf
         from collections import deque
@@ -115,4 +142,4 @@ class NeighborLoader:
                         self._make_batch, self._batch_seeds(order, b_next),
                         child[b_next]))
                     b_next += 1
-                yield pending.popleft().result()
+                yield self._count(pending.popleft().result())

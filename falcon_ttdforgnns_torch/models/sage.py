@@ -45,17 +45,18 @@ class SAGE(nn.Module):
                  q_shapes: Optional[Sequence[int]] = None,
                  weight_dist: str = "approx-normal", cache_size: int = 0,
                  precomputed_cores: Optional[Sequence[np.ndarray]] = None,
-                 batch_count: int = 131072, grouped: bool = False,
+                 batch_count: int = 131072,
                  generator: Optional[torch.Generator] = None, bf16: bool = False,
                  mean_acc_f32: bool = False, bf16_f32_head: bool = False,
-                 bf16_f32_first: bool = False):
+                 bf16_f32_first: bool = False, device_freq: bool = False):
         super().__init__()
         self.num_nodes, self.in_dim = num_nodes, in_dim
         self.num_layers, self.dropout = num_layers, dropout
         self.bf16, self.mean_acc_f32 = bf16, mean_acc_f32
         self.embed = TTEmbeddingBag(
             num_nodes, in_dim, tt_ranks, p_shapes, q_shapes, weight_dist,
-            cache_size, grouped, precomputed_cores, batch_count=batch_count)
+            cache_size, precomputed_cores, batch_count=batch_count,
+            device_freq=device_freq)
         dims = [hidden_dim] * (num_layers - 1) + [num_classes]
         ins = [in_dim] + dims[:-1]
 
@@ -72,9 +73,10 @@ class SAGE(nn.Module):
     def forward(self, seeds: torch.Tensor, layers: Sequence[torch.Tensor],
                 train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Dense-fanout forward: one embedding lookup over every level."""
+        """Dense-fanout forward: one embedding lookup over every level; a
+        training forward counts its accesses for the cache."""
         all_ids, sizes, B = collect_level_ids(seeds, layers)
-        hs = self._split_levels(self.embed(all_ids), sizes, B)
+        hs = self._split_levels(self.embed(all_ids, count_accesses=train), sizes, B)
         return self._conv_tower(hs, train, generator)
 
     def _split_levels(self, h_all: torch.Tensor, sizes: Sequence[int],
@@ -124,7 +126,7 @@ class SAGE(nn.Module):
         the JAX convs do: under ``bf16`` the activations after the first
         conv, their SpMM and the logits are bf16."""
         ids = torch.arange(self.num_nodes, dtype=torch.int32, device=src.device)
-        h = self.embed(ids)
+        h = self.embed(ids, count_accesses=train)
         for li, conv in enumerate(self.convs):
             h = conv(h, spmm_mean(h, src, dst, self.num_nodes, in_deg, chunk=chunk))
             if li < self.num_layers - 1:
@@ -146,4 +148,6 @@ class SAGE(nn.Module):
                                layer_idx)
 
     def materialize_features(self, node_ids: torch.Tensor) -> torch.Tensor:
-        return self.embed(node_ids)
+        """Rows of the feature table (cache hits from the cache); counts no
+        access."""
+        return self.embed(node_ids, count_accesses=False)

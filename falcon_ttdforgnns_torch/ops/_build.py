@@ -1,12 +1,15 @@
-"""Build and load the Hopper kernels of ``csrc/*.cu``.
+"""Build and load the Hopper kernels of ``csrc/*.cu`` and the host runtime
+``csrc/falcon_native.cpp``.
 
-nvcc compiles each source into its own shared library with a plain C
+nvcc compiles each CUDA source into its own shared library with a plain C
 interface (seconds, no PyTorch headers), keyed on a hash of the source and
 flags, in ``falcon_ttdforgnns_torch/build/``; ctypes loads it.  Nothing is
 built at import time: the first CUDA call of a source's wrappers builds
 that source, and :func:`build_all` builds every source with one nvcc each,
-all started together.  A missing nvcc or a failed build raises — there is
-no fallback.
+all started together.  The host runtime is built the same way by the host
+C++ compiler (:func:`build_host`, the JAX package's ``csrc/Makefile``
+flags) at the first call of ``graph/_native.py``.  A missing compiler or a
+failed build raises — there is no fallback.
 """
 
 from __future__ import annotations
@@ -54,6 +57,13 @@ _ERROR_STRING = {"tt_kernels": "tt_error_string", "spmm_kernels": "spmm_error_st
 SOURCES = tuple(_SIGNATURES)
 
 
+# the host runtime: csrc/<name>.cpp, built with the JAX package's
+# csrc/Makefile flags (CXXFLAGS, then -shared)
+HOST_SOURCES = ("falcon_native",)
+CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-pthread", "-Wall",
+             "-shared")
+
+
 def find_nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
                  "/usr/local/cuda"):
@@ -82,30 +92,73 @@ def library_path(name: str = "tt_kernels") -> Path:
     return BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES) -> Dict[str, Tuple[Path, str]]:
-    """Compile every source not built yet, one nvcc process each, all
-    running at once.  Returns {source: (library path, the compiler's
-    report)}; the report (ptxas register and shared memory use) is empty
-    for a library that already existed.  Raises if any build failed."""
+def find_cxx() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++``, else ``c++`` on PATH."""
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler found ($CXX, g++, c++): the native "
+                       "runtime of falcon_ttdforgnns_torch cannot be built")
+
+
+def _compile(cmd, so: Path) -> Tuple[Path, subprocess.Popen]:
+    """Start one compiler writing a file of this process's own; the caller
+    moves it into place (:func:`_finish`), so that processes building the
+    same library at once never load a half-written one."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    return tmp, subprocess.Popen([*cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _finish(name: str, so: Path, tmp: Path, proc: subprocess.Popen):
+    """Wait for one compiler: (error message or None, its report)."""
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        return f"build of {name} failed ({proc.returncode}):\n{err}", ""
+    os.replace(tmp, so)
+    return None, out + err
+
+
+def host_library_path(name: str = "falcon_native") -> Path:
+    """The host runtime's library, keyed on its source and the flags."""
+    if name not in HOST_SOURCES:
+        raise ValueError(f"unknown host source {name!r}; expected one of {HOST_SOURCES}")
+    src = CSRC / f"{name}.cpp"
+    key = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
+
+
+def build_host(name: str = "falcon_native") -> Path:
+    """Compile the host runtime if it has not been built yet; raises if the
+    compiler is missing or fails."""
+    return build_all((), (name,))[name][0]
+
+
+def build_all(names=SOURCES, host=()) -> Dict[str, Tuple[Path, str]]:
+    """Compile every CUDA source of ``names`` and host source of ``host``
+    not built yet, one compiler process each, all running at once.
+    Returns {source: (library path, the compiler's report)}; the report
+    (for nvcc, ptxas register and shared memory use) is empty for a library
+    that already existed.  Raises if any build failed."""
     todo, done = {}, {}
-    for name in names:
-        so = library_path(name)
+    for name in (*names, *host):
+        cuda = name not in host
+        so = library_path(name) if cuda else host_library_path(name)
         if so.exists():
             done[name] = (so, "")
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
-        todo[name] = (so, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.PIPE, text=True))
+        cmd = ([find_nvcc(), *NVCC_FLAGS, str(_source(name))] if cuda
+               else [find_cxx(), *CXX_FLAGS, str(CSRC / f"{name}.cpp")])
+        todo[name] = (so, *_compile(cmd, so))
     failed = []
     for name, (so, tmp, proc) in todo.items():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {name}.cu ({proc.returncode}):\n{err}")
-            continue
-        os.replace(tmp, so)
-        done[name] = (so, out + err)
+        msg, report = _finish(name, so, tmp, proc)
+        if msg:
+            failed.append(msg)
+        else:
+            done[name] = (so, report)
     if failed:
         raise RuntimeError("\n".join(failed))
     return done

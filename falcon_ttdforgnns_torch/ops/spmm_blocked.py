@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import resolve_device
 from . import _build
 
 KERNELS = ("spmm_gather",)
@@ -218,7 +219,11 @@ class BlockedSpmm(NamedTuple):
 def build_blocked_spmm(src: np.ndarray, dst: np.ndarray, num_nodes: int,
                        edge_weight: Optional[np.ndarray] = None, tile: int = 4096,
                        dst_buckets: int = 16, chunk_tiles: int = 512,
-                       device="cpu") -> BlockedSpmm:
+                       device="cuda") -> BlockedSpmm:
+    """The window tilings of A and A^T, on ``device``: the card unless the
+    caller asks for the CPU, as the trainers; asking for the card where
+    there is none raises."""
+    device = resolve_device(device)
     f = build_window_tiles(src, dst, num_nodes, edge_weight, tile, dst_buckets,
                            chunk_tiles)
     b = build_window_tiles(dst, src, num_nodes, edge_weight, tile, dst_buckets,

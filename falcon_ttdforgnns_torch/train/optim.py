@@ -4,8 +4,11 @@ state (no ``.item()`` inside a step).
 Port of ``falcon_ttdforgnns_tpu/train/optim.py``: optax-parity Adam/AdamW
 for the dense params, the routed TT-core optimizers (``sgd``,
 ``tt_adagrad``, ``rowwise_adagrad`` with the reference's eps convention),
-the branch-free ReduceLROnPlateau, and the constants the fused core
-updates share with them.
+the hot-row cache's group (``rowwise_adagrad`` at the trainer's lr, the
+reference trainer's ``cache_optimizer``), the branch-free
+ReduceLROnPlateau, whose scale multiplies every group's update as
+``optax.chain`` applies it, and the constants the fused core updates share
+with them.
 """
 
 from __future__ import annotations
@@ -106,12 +109,50 @@ def core_update(cores: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
             a = accs[k].add_(g * g)
             u = -lr * g / (torch.sqrt(a) + ADAGRAD_EPS)
         elif tt_optimizer == "rowwise_adagrad":
-            a = accs[k].add_((g * g).mean(dim=tuple(range(1, g.dim()))))
-            step = lr / (torch.sqrt(a) + ROWWISE_ADAGRAD_EPS)
-            u = -step.reshape((-1,) + (1,) * (g.dim() - 1)) * g
+            u = _rowwise_adagrad(g, accs[k], lr)
         else:
             raise ValueError(f"no routed core update for {tt_optimizer!r}")
         c.add_(scale * u)
+
+
+def _rowwise_adagrad(g: torch.Tensor, acc: torch.Tensor, lr: float) -> torch.Tensor:
+    """JAX ``rowwise_adagrad``'s update of one parameter (rows on axis 0):
+    ``acc += mean(g^2)`` over each row, in place, then
+    ``u = -(lr / (sqrt(acc) + 1e-8)) g``."""
+    a = acc.add_((g * g).mean(dim=tuple(range(1, g.dim()))))
+    step = lr / (torch.sqrt(a) + ROWWISE_ADAGRAD_EPS)
+    return -step.reshape((-1,) + (1,) * (g.dim() - 1)) * g
+
+
+@dataclass
+class CacheOptState:
+    """The state of the cache rows' group: ``rowwise_adagrad``'s
+    accumulator (K,) at ``lr``."""
+    lr: float
+    acc: torch.Tensor
+
+
+def cache_opt_init(weight: torch.Tensor, lr: float) -> CacheOptState:
+    """The cache group's optimizer on ``cache_weight`` (K, D): JAX
+    ``make_optimizer``'s default ``cache_optimizer``, ``rowwise_adagrad``
+    at ``cache_lr`` = lr, which is all its trainer builds."""
+    return CacheOptState(lr, torch.zeros(weight.shape[:1], dtype=weight.dtype,
+                                         device=weight.device))
+
+
+@torch.no_grad()
+def cache_update(weight: torch.Tensor, grad: torch.Tensor, state: CacheOptState,
+                 scale: torch.Tensor) -> None:
+    """One in-place step of the cache group, times the plateau ``scale``."""
+    weight.add_(scale * _rowwise_adagrad(grad, state.acc, state.lr))
+
+
+@torch.no_grad()
+def reset_cache_opt_state(state: CacheOptState) -> None:
+    """A fresh state for the cache group, in place: a populate re-sorts the
+    id table, so a slot's accumulator would scale another row's updates
+    (JAX ``reset_cache_opt_state``)."""
+    state.acc.zero_()
 
 
 @dataclass

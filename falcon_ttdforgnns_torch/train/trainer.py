@@ -20,11 +20,12 @@ so the CPU tests reach the routing.
 
 Two step bodies, as in the JAX trainer:
 
-* ``--sparse`` (fused, ``trainer.py:627-716``): the step sorts its ids
-  once (``grouped_order``) for the lookup and the core update; the TT
-  lookup runs without autograd (``tt_fwd``, storing bf16 under
-  ``--bf16``/``--bf16-kernel``, or ``tt_fwd_sr`` with ``--bf16-sr`` as
-  well, seeded per step from a device generator); the conv tower and the loss backprop to ``h_all`` as a leaf
+* ``--sparse`` without the hot-row cache (fused, ``trainer.py:627-716``):
+  the step sorts its ids once (``grouped_order``) for the lookup and the
+  core update; the TT lookup runs without autograd (``tt_fwd``, storing
+  bf16 under ``--bf16``/``--bf16-kernel``, or ``tt_fwd_sr`` with
+  ``--bf16-sr`` as well, seeded per step from a device generator); the
+  conv tower and the loss backprop to ``h_all`` as a leaf
   (so ``d_h`` comes back in ``h_all``'s dtype); the dense params take Adam
   with the plateau scale; then the fused core update, ``tt_grads`` and one
   of: ``tt_adam_apply`` with ``scal = [lr * plateau_scale, 1/(1-b1^t),
@@ -32,9 +33,18 @@ Two step bodies, as in the JAX trainer:
   ``tt_sgd_apply`` / ``tt_adagrad_apply`` with the fixed ``lr`` and no
   plateau scale (``sgd``, ``adagrad``, ``rowwise_adagrad``).
 * otherwise (``trainer.py:573-596``): autograd reaches the cores through
-  :class:`TTLookup` (``tt_grads`` as its backward); the dense params take
-  Adam and the cores ``--tt-optimizer`` (one Adam for all when it is
-  ``adam``), every update times the plateau scale.
+  :class:`TTLookup` (``tt_grads`` as its backward; in f32 also under
+  ``--bf16``, whose tower casts the rows); the dense params take Adam, the
+  cores ``--tt-optimizer`` (one Adam for all when it is ``adam``) and the
+  cache rows rowwise adagrad, every update times the plateau scale.
+
+The hot-row cache (``--use-cached --cache-size K``, ``trainer.py:1032-1050``)
+turns the fused body off, as JAX's ``_want_fused_sparse`` does.  Epoch 0
+warms up: nothing hits, and the accesses are counted by the host loader
+(``--mode mixed``) or in the step (``--mode puregpu``, ``device_freq``).
+After it :meth:`maybe_populate_cache` caches the K most accessed ids'
+rows and resets the cache group's optimizer state; later epochs serve the
+hits from the cache.
 """
 
 from __future__ import annotations
@@ -62,8 +72,8 @@ from ..utils import resolve_device
 from ..utils.metrics import throughput
 from .optim import (ADAGRAD_EPS, ADAM_B1, ADAM_B2, ADAM_EPS, ROWWISE_ADAGRAD_EPS,
                     TT_OPTIMIZERS, adam_init, adam_update, auto_plateau_patience,
-                    bias_corrections, core_update, plateau_init, reduce_on_plateau,
-                    tt_acc_init)
+                    bias_corrections, cache_opt_init, cache_update, core_update,
+                    plateau_init, reduce_on_plateau, reset_cache_opt_state, tt_acc_init)
 
 
 # full-graph aggregation of evaluate(): "xla" the chunked index_add_ SpMM,
@@ -123,7 +133,6 @@ class TrainConfig:
     rng_impl: str = "threefry"
     num_workers: int = 1
     use_sample: bool = True
-    grouped: bool = False
     node_shard: bool = False
     eval_sampled: bool = False
     eval_sample_max: int = 131072
@@ -133,9 +142,7 @@ def _check_supported(cfg: TrainConfig) -> None:
     missing = [
         (cfg.dist or cfg.node_shard, "--dist/--node-shard (ROADMAP A8)"),
         (not cfg.use_sample, "--full-neighbor training (ROADMAP A2)"),
-        (cfg.cache_size > 0, "the hot-row cache (ROADMAP A6)"),
         (cfg.access_counts, "--access-counts (ROADMAP A3)"),
-        (cfg.grouped, "--emb-name eff (ROADMAP A6)"),
         (not cfg.use_tt, "--no-tt dense embeddings (ROADMAP A3)"),
         (cfg.eval_sampled, "--eval-sampled (ROADMAP A9)"),
     ]
@@ -260,18 +267,21 @@ class SageTrainer:
             hidden_dim=cfg.hidden_dim, num_classes=dataset.num_classes,
             num_layers=cfg.num_layers, dropout=cfg.dropout, tt_ranks=cfg.tt_ranks,
             p_shapes=cfg.p_shapes, q_shapes=cfg.q_shapes,
-            weight_dist=cfg.weight_dist, precomputed_cores=precomputed_cores,
-            batch_count=cfg.batch_count,
-            generator=torch.Generator().manual_seed(cfg.seed), bf16=bf16_tower,
-            mean_acc_f32=cfg.bf16_mean_f32, bf16_f32_head=cfg.bf16_f32_head,
-            bf16_f32_first=cfg.bf16_f32_first).to(self.device)
+            weight_dist=cfg.weight_dist, cache_size=cfg.cache_size,
+            precomputed_cores=precomputed_cores, batch_count=cfg.batch_count,
+            generator=torch.Generator().manual_seed(cfg.seed),
+            bf16=bf16_tower, mean_acc_f32=cfg.bf16_mean_f32,
+            bf16_f32_head=cfg.bf16_f32_head, bf16_f32_first=cfg.bf16_f32_first,
+            # in-step sampling: the host loader never runs, so the step counts
+            device_freq=cfg.mode == "puregpu" and cfg.cache_size > 0).to(self.device)
         self.shapes = self.model.embed.shapes
         self.patience = auto_plateau_patience(cfg.plateau_patience, bf16_tower)
         if bf16_tower and cfg.plateau_patience < 0 and logger:
             logger.info("bf16 tower: reduce-on-plateau auto-disabled (its ratchet "
                         "reads bf16 loss noise as a plateau); pass "
                         "--plateau-patience to force it on")
-        self.fused_sparse = cfg.sparse
+        # a cache turns the fused update off (JAX _want_fused_sparse)
+        self.fused_sparse = cfg.sparse and cfg.cache_size == 0
         self.cores = list(self.model.embed.cores)
         dense = [p for n, p in self.model.named_parameters()
                  if not n.startswith("embed.")]
@@ -279,8 +289,12 @@ class SageTrainer:
         # update nor another routed core optimizer takes them
         self.routed_cores = not self.fused_sparse and cfg.tt_optimizer != "adam"
         self.opt_params = (dense if self.fused_sparse or self.routed_cores
-                           else list(self.model.parameters()))
+                           else dense + self.cores)
         self.opt_state = adam_init(self.opt_params)
+        # the cache rows' group: rowwise adagrad at lr (JAX make_optimizer's defaults)
+        self.cache_weight = self.model.embed.cache_weight if cfg.cache_size > 0 else None
+        self.cache_opt = (cache_opt_init(self.cache_weight, lr=cfg.lr)
+                          if self.cache_weight is not None else None)
         self.plateau = plateau_init(self.device)
         # fused-Adam moments of the cores and their step count t
         self.tt_opt = (adam_init(self.cores)
@@ -291,14 +305,19 @@ class SageTrainer:
         self.h_dtype = torch.bfloat16 if cfg.bf16 or cfg.bf16_kernel else torch.float32
         self.sr_gen = torch.Generator(device=self.device)
         self.sr_gen.manual_seed(cfg.seed + 0x5EED)
+        # the host counts feed only the cache's populate
         self.loader = NeighborLoader(dataset.graph, dataset.train_idx,
                                      dataset.labels, cfg.fanouts, cfg.batch_size,
-                                     seed=cfg.seed, num_workers=cfg.num_workers)
+                                     seed=cfg.seed, track_freq=cfg.cache_size > 0,
+                                     num_workers=cfg.num_workers)
         self.dropout_gen = torch.Generator(device=self.device)
         self.dropout_gen.manual_seed(cfg.seed + 1000)
         # --mode puregpu: the in-step sampler's own generator, reseeded each epoch
         self.sample_gen = torch.Generator(device=self.device)
         self.sample_gen.manual_seed(cfg.seed + 2000)
+        if cfg.mode == "puregpu" and cfg.cache_size > 0 and logger:
+            logger.warning("--mode puregpu samples on the device; host LFU counts are "
+                           "unavailable, so the cache populates from the counts of the step")
         self._eval_args = None
         self._spmms: Dict[str, FullGraphSpmm] = {}
         self._metrics: Dict[str, List[float]] = {"loss": [], "throughput": []}
@@ -381,8 +400,10 @@ class SageTrainer:
             logits = self.model(seeds, layers, train=True, generator=self.dropout_gen)
             loss = F.cross_entropy(logits, labels)
             routed = self.cores if self.routed_cores else []
-            grads = torch.autograd.grad(loss, [*self.opt_params, *routed])
-            grads, core_grads = grads[:len(self.opt_params)], grads[len(self.opt_params):]
+            cache = [] if self.cache_weight is None else [self.cache_weight]
+            grads = torch.autograd.grad(loss, [*self.opt_params, *routed, *cache])
+            n, m = len(self.opt_params), len(self.opt_params) + len(routed)
+            grads, core_grads, cache_grads = grads[:n], grads[n:m], grads[m:]
         scale = self._plateau_scale(loss)
         adam_update(self.opt_params, grads, self.opt_state, cfg.lr, scale,
                     cfg.weight_decay)
@@ -391,6 +412,8 @@ class SageTrainer:
         elif self.routed_cores:
             core_update(self.cores, core_grads, self.tt_acc, cfg.tt_optimizer,
                         cfg.lr, scale)
+        if self.cache_weight is not None:
+            cache_update(self.cache_weight, cache_grads[0], self.cache_opt, scale)
         acc = (logits.detach().argmax(-1) == labels).float().mean()
         return loss.detach(), acc
 
@@ -555,6 +578,22 @@ class SageTrainer:
             h = self.model.apply_conv(h, spmm(h) / degc, li)
         return h
 
+    def maybe_populate_cache(self) -> None:
+        """After the warmup epoch: cache the K most accessed ids' rows
+        (``sage_dgl_partition.py:350-361``), from the host loader's counts in
+        ``--mode mixed`` and the step's in ``--mode puregpu`` (whose loader
+        never ran; its zero counts would populate an empty cache), then
+        reset the cache group's optimizer state: slots now hold other ids."""
+        cfg = self.cfg
+        if not (cfg.use_tt and cfg.cache_size > 0):
+            return
+        freq = self.loader.freq
+        if cfg.mode == "puregpu" or (freq is not None and not freq.any()):
+            freq = None
+        # JAX's cache_populate_apply: the rows and the id table, in place
+        self.model.embed.cache_populate(freq)
+        reset_cache_opt_state(self.cache_opt)
+
     def fit(self, epochs: Optional[int] = None) -> Dict[str, Any]:
         cfg = self.cfg
         epochs = epochs or cfg.epochs
@@ -562,6 +601,8 @@ class SageTrainer:
         history = []
         for epoch in range(epochs):
             stats = self.train_epoch(epoch)
+            if epoch == 0:
+                self.maybe_populate_cache()
             if not cfg.skip_eval and (
                     (epoch + 1) % cfg.eval_every == 0 or epoch == epochs - 1):
                 stats.update(self.evaluate())

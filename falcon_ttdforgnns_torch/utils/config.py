@@ -152,7 +152,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     t.add_argument("--emb-name", type=str, default="tt",
                    choices=["tt", "eff", "dense"],
                    help="embedding impl: tt (FBTT-analog fused lookup), "
-                        "eff (Efficient_TT grouped prefix-dedup lookup), "
+                        "eff (Efficient_TT grouped prefix-dedup lookup; the "
+                        "port's tt kernels already group by prefix, so an alias), "
                         "dense (no TT)")
     t.add_argument("--sparse", action="store_true",
                    help="fused in-kernel TT-core updates (one Pallas pass: "

@@ -475,13 +475,13 @@ def test_wrappers_raise_on_bad_input(cuda):
                          [torch.zeros_like(c) for c in cores], 0.1, 1e-8, rowwise=True)
 
 
-def tiny_trainer(**kw):
+def tiny_trainer(device="cuda", **kw):
     from falcon_ttdforgnns_torch.graph import hard_synthetic_dataset
     from falcon_ttdforgnns_torch.train import SageTrainer, TrainConfig
     ds = hard_synthetic_dataset(num_nodes=2000, avg_degree=5, num_classes=4,
                                 feat_dim=16, seed=0)
     return SageTrainer(ds, TrainConfig(batch_size=64, fanouts=(3, 3), hidden_dim=16,
-                                       num_layers=2, tt_ranks=(4, 4), **kw))
+                                       num_layers=2, tt_ranks=(4, 4), **kw), device=device)
 
 
 def test_train_step_launches_every_kernel(cuda):
@@ -913,11 +913,14 @@ def test_device_sampler_on_card(cuda):
     (dict(bf16=True), ("tt_fwd[bf16]", "tt_grads[bf16]", "tt_adam_apply")),
     (dict(tt_optimizer="rowwise_adagrad", sampler="table", table_width=8),
      ("tt_fwd", "tt_grads", "tt_adagrad_apply[rowwise]")),
-], ids=["bf16", "rowwise_adagrad_table"])
+    (dict(bf16=True, cache_size=256), ("tt_fwd", "tt_grads")),
+], ids=["bf16", "rowwise_adagrad_table", "bf16_cache"])
 def test_puregpu_epoch_on_card(cuda, kw, launched):
     """--mode puregpu --sparse: an epoch of 4 steps on the card launches the
     path's kernels once a step, sorts the ids once a step, and a step after
-    the first makes no host sync (sync debug mode)."""
+    the first makes no host sync (sync debug mode).  With a cache the update
+    is routed (TTLookup in f32, its backward tt_grads) and the step counts
+    every sampled id into the module's counts."""
     import dataclasses
     tr = tiny_trainer(sparse=True, mode="puregpu", steps_per_call=2, **kw)
     tr.ds = dataclasses.replace(tr.ds, train_idx=tr.ds.train_idx[:256])
@@ -927,6 +930,10 @@ def test_puregpu_epoch_on_card(cuda, kw, launched):
     assert {k: v for k, v in tt_kernels.launch_counts().items() if v} == dict.fromkeys(
         launched, 4)
     assert tt_kernels.sort_count() == 4
+    if "cache_size" in kw:
+        assert int(tr.model.embed.cache_freq.sum()) == 4 * 64 * (1 + 3 + 9)
+        tr.maybe_populate_cache()
+        assert bool(tr.model.embed.cache_ready)
     seeds = torch.tensor(tr.ds.train_idx[:64].astype(np.int32), device=cuda)
     labels = torch.tensor(tr.ds.labels[tr.ds.train_idx[:64]].astype(np.int32), device=cuda)
     torch.cuda.synchronize()
@@ -936,3 +943,77 @@ def test_puregpu_epoch_on_card(cuda, kw, launched):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(float(loss))
+
+
+# ------------------------------------------------------------ hot-row cache
+def tied_counts(n, seed, top=1000):
+    """LFU counts with long runs of ties: small integers, a few large."""
+    rng = np.random.default_rng(seed)
+    freq = rng.integers(0, 4, n).astype(np.int32)
+    freq[rng.choice(n, top, replace=False)] = rng.integers(5, 50, top)
+    return freq
+
+
+@pytest.mark.parametrize("n,k", [(3000, 256), (2_449_029, 100_000)])
+def test_stable_top_ids_on_card_match_cpu(cuda, n, k):
+    """The populate's selection (a stable descending sort: the lower id
+    first among equal counts) picks the same ids on the card as on the CPU,
+    where the K-th place falls in a run of ties."""
+    from falcon_ttdforgnns_torch.ops import cache
+    freq = tied_counts(n, 1)
+    got = cache.top_ids(torch.tensor(freq, device=cuda), k).cpu()
+    want = cache.top_ids(torch.tensor(freq), k)
+    assert torch.equal(got, want)
+    assert (freq == freq[int(want[-1])]).sum() > 1  # a tie at the K-th place
+
+
+def test_cache_populate_rows_through_tt_fwd_match_plain(cuda):
+    """populate at final-p's shapes (products TT shapes, K = 100,000):
+    the id table equals the CPU's, and the rows, from tt_fwd in chunks of
+    8192 ids (13 launches), equal the plain chain's within 1e-5 of the
+    largest."""
+    from falcon_ttdforgnns_torch.ops import cache
+    from falcon_ttdforgnns_torch.ops.tt_shapes import make_tt_shapes
+    shapes = make_tt_shapes(2_449_029, 100, (16, 16), (125, 140, 140), (5, 5, 4))
+    cores = [torch.tensor(c, device=cuda) for c in tt_init.init_tt_cores(shapes, "normal", 0)]
+    freq = tied_counts(shapes.num_embeddings, 2)
+    meta = cache.init_meta(shapes.num_embeddings, 100_000, cuda)
+    meta.freq.copy_(torch.tensor(freq))
+    tt_kernels.reset_launch_counts()
+    new, weight = cache.populate(shapes, cores, meta, 100_000)
+    assert tt_kernels.launch_counts()["tt_fwd"] == 13
+    cpu_meta = cache.init_meta(shapes.num_embeddings, 100_000)
+    cpu_meta.freq.copy_(torch.tensor(freq))
+    assert torch.equal(new.ids.cpu(), cache.top_ids(cpu_meta.freq, 100_000).sort()[0])
+    want = tt_kernels.tt_fwd_plain(shapes, cores, torch.clamp(new.ids, min=0))
+    assert rel_err(weight, want) <= 1e-5 and bool(new.ready)
+
+
+def test_cached_steps_on_card_match_cpu(cuda):
+    """final-p's lifecycle on the tiny graph: 2 warmup steps, the populate
+    from the host counts, 2 cached steps, on the card and on the CPU on the
+    same batches.  The same ids are cached; losses within 1e-4; every
+    parameter (the cache rows too) within 3e-3 lr but for at most 0.1% of
+    its elements, none past 0.05 lr (Adam on a near-cancelled gradient,
+    as the full-graph check)."""
+    kw = dict(sparse=True, cache_size=256, dropout=0.0, lr=0.003)
+    gpu, cpu = tiny_trainer(**kw), tiny_trainer(device="cpu", **kw)
+    assert not gpu.fused_sparse
+    batches = iter(cpu.loader)
+    tt_kernels.reset_launch_counts()
+    for step in range(4):
+        if step == 2:
+            gpu.loader.freq = cpu.loader.freq.copy()
+            gpu.maybe_populate_cache()
+            cpu.maybe_populate_cache()
+            assert torch.equal(gpu.model.embed.cache_ids.cpu(), cpu.model.embed.cache_ids)
+        b = next(batches)
+        lg, _ = gpu.train_step(b.seeds, b.layers, b.labels)
+        lc, _ = cpu.train_step(b.seeds, b.layers, b.labels)
+        assert float(lg) == pytest.approx(float(lc), rel=1e-4)
+    counts = tt_kernels.launch_counts()
+    assert counts["tt_grads"] == 4 and counts["tt_fwd"] == 4 + 1  # + the populate's
+    for (name, a), b in zip(gpu.model.named_parameters(), cpu.model.parameters()):
+        off = (a.detach().cpu() - b.detach()).abs()
+        assert float((off > 3 * 1e-3 * 0.003).float().mean()) <= 1e-3, name
+        assert float(off.max()) <= 0.05 * 0.003, name

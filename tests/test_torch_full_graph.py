@@ -114,7 +114,8 @@ def test_graphconv_matches_flax(route):
     with torch.no_grad():
         conv.lin.weight.copy_(lin_from(variables["params"]["Dense_0"]))
         conv.lin.bias.copy_(torch.tensor(np.asarray(variables["params"]["Dense_0"]["bias"])))
-    op = build_blocked_spmm(src, dst, n, tile=256, dst_buckets=16, chunk_tiles=8) \
+    op = build_blocked_spmm(src, dst, n, tile=256, dst_buckets=16, chunk_tiles=8,
+                            device="cpu") \
         if route == "blocked" else None
     got = conv(torch.tensor(h), torch.tensor(src), torch.tensor(dst), torch.tensor(deg), n, op)
     close(got.detach().numpy(), want)

@@ -1,6 +1,7 @@
 """The port's graph host layer against the JAX package: datasets, CSR,
-sampler and reorder.  Graphs stay below 100K edges so the JAX side takes
-its numpy CSR path, and its sampler is pinned to the numpy path."""
+sampler and reorder.  Graphs stay below 100K edges so both sides take
+their numpy CSR paths, and both samplers are pinned to their numpy paths
+(tests/test_torch_reorder.py holds the native paths to each other)."""
 
 import numpy as np
 import pytest
@@ -45,8 +46,6 @@ def test_random_permutation_and_permute_match():
     perm = reorder.reorder_permutation(ds.graph, 0, seed=9)
     np.testing.assert_array_equal(perm, jax_reorder.random_permutation(jds.graph, seed=9))
     assert_same_dataset(ds.permute(perm), jds.permute(perm))
-    with pytest.raises(NotImplementedError):
-        reorder.reorder_permutation(ds.graph, 8)
 
 
 def test_from_edges_matches_with_dedup():
@@ -61,7 +60,9 @@ def test_from_edges_matches_with_dedup():
 
 @pytest.fixture
 def jax_numpy_sampler(monkeypatch):
+    """Both samplers' native handles off: the numpy paths run."""
     monkeypatch.setattr(jax_sampler, "_native", None)
+    monkeypatch.setattr(sampler, "_native", None)
     return jax_sampler
 
 

@@ -162,7 +162,8 @@ def test_blocked_operator_tilings_bit_identical():
     src, dst = random_graph(n, e, seed=9)
     w = np.random.default_rng(10).random(e).astype(np.float32)
     kw = dict(edge_weight=w, tile=256, dst_buckets=4, chunk_tiles=8)
-    ours, ref = B.build_blocked_spmm(src, dst, n, **kw), JB.build_blocked_spmm(src, dst, n, **kw)
+    ours = B.build_blocked_spmm(src, dst, n, **kw, device="cpu")
+    ref = JB.build_blocked_spmm(src, dst, n, **kw)
     for side in ("fwd", "bwd"):
         for a, b in zip(getattr(ours, side), getattr(ref, side)):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -171,6 +172,16 @@ def test_blocked_operator_tilings_bit_identical():
     ts = B.build_window_tiles(src, dst, n, tile=256, chunk_tiles=8)
     with pytest.raises(ValueError):  # the tile count is no multiple of the chunk
         B.chunk_tiles_host(ts, ts.win.shape[0] + 1)
+
+
+def test_blocked_operator_defaults_to_the_card():
+    """build_blocked_spmm places its tilings on the card unless the caller
+    asks for the CPU, as the trainers do: without a card it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    src, dst = random_graph(300, 1000, seed=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        B.build_blocked_spmm(src, dst, 300, tile=256, dst_buckets=4, chunk_tiles=8)
 
 
 # -------------------------------------------------- plain tiled SpMMs (B7, B8)
@@ -440,7 +451,7 @@ def test_apply_blocked_spmm_grad_matches_jax_vjp():
         return jnp.sum(jnp.sin(out) * out)
 
     lj, gj = jax.value_and_grad(loss_j)(jnp.asarray(h0))
-    op = B.build_blocked_spmm(src, dst, n, **kw)
+    op = B.build_blocked_spmm(src, dst, n, **kw, device="cpu")
     h = torch.tensor(h0, requires_grad=True)
     out = B.apply_blocked_spmm(h, op)
     loss = (torch.sin(out) * out).sum()

@@ -77,7 +77,23 @@
    evaluate(); then the same warmup and cached batches without the cache,
    ms a step against the cached.  (c) The puregpu flagship with the cache
    (--use-cached --cache-size 100000): a warmup epoch counted on the card,
-   the populate from those counts, a cached epoch, each counted;
+   the populate from those counts, a cached epoch, each counted.  (e) The
+   README's baseline preset (--no-tt: the dense 2,449,029 x 100 f32 table,
+   routed Adam): 5 --mode mixed steps, a puregpu epoch of 5 steps counted,
+   profiled and timed, evaluate(); the TT flagship in f32 on the same
+   puregpu batches; ms a step, seeds/s, device busy, peak memory and the
+   bytes of parameters and optimizer state of each.  (f) --no-tt and
+   --full-neighbor steps on the tiny graph, card vs CPU; then
+   --full-neighbor at products (f32, routed Adam, batch 1024): 3 steps
+   counted (tt_fwd over all 2,449,029 ids and tt_grads once each a step),
+   one profiled, both kernels at this shape against their plain versions
+   and bounds, evaluate().  (g) The bf16 fan-out mean's two kernels (the
+   port's own, no TPU kernel's) bit for bit against their plain versions
+   on the flagship's six level shapes, timed.  (h) Checkpoints: the puregpu
+   flagship after an epoch and final-p after its populate and cached steps
+   saved, restored into fresh trainers (every tensor of the state bit for
+   bit; file MB, save and restore seconds), then original and restored
+   take the same 5 steps, held at the card-vs-card margins;
 7. evaluate() of the f32 weights through --spmm pallas (B7) and --spmm
    blocked (B9): the host tiling timed apart, the accuracies held to the
    xla route's;
@@ -89,9 +105,11 @@
 9. prints the per-kernel JSON line, then the device line.
 
 The steps run in the order 1, 2, 5, step 6's flagship phases (the main
-path and --sampler table), then 4 beside the orderings, 6 (a)-(c), 3 in a
-process of its own (after the main path's profile, see main()), the rest
-of 6, 7, 8 and 9: no host-timed phase runs beside the orderings.
+path and --sampler table), 6 (e) and (f), then 4, 6 (g) and the
+flagship's checkpoint beside the orderings, 6 (a)-(c) with final-p's
+checkpoint, 3 in a process of its own (after the main path's profile, see
+main()), the rest of 6, 7, 8 and 9: no host-timed phase but the
+checkpoint's save and restore runs beside the orderings.
 
 Exits non-zero, before printing any result, without a CUDA device or
 outside a checkout of the repository; any failed check raises.
@@ -150,8 +168,11 @@ FINAL_P_WARMUP = 40        # final-p's warmup steps (epoch 0), counted by the ho
 FINAL_P_CACHED = 10        # its cached steps (epoch 1), on seeds the warmup did not draw
 PUREGPU_CACHE_STEPS = 5    # the puregpu flagship with the cache: steps an epoch
 IDS_PER_STEP = 1024 * (1 + 15 + 15 * 10 + 15 * 10 * 5)  # 937,984 at fan-out 5,10,15
+STEPS_FULL_NEIGHBOR = 3    # --full-neighbor steps at products
+CKPT_STEPS = 5             # steps before a save and after a restore
 TT_SOURCE = "falcon_ttdforgnns_torch/csrc/tt_kernels.cu"
 SPMM_SOURCE = "falcon_ttdforgnns_torch/csrc/spmm_kernels.cu"
+TOWER_SOURCE = "falcon_ttdforgnns_torch/csrc/tower_kernels.cu"
 TT_PALLAS = "falcon_ttdforgnns_tpu/ops/tt_pallas.py"
 REPLACES = {  # the TPU kernel each one ports (its def line)
     "tt_fwd": f"{TT_PALLAS}:255", "tt_fwd[bf16]": f"{TT_PALLAS}:255",
@@ -163,7 +184,11 @@ REPLACES = {  # the TPU kernel each one ports (its def line)
     "spmm_tiled[bf16]": "falcon_ttdforgnns_tpu/ops/spmm_pallas.py:122",
     "spmm_tile_partials": "falcon_ttdforgnns_tpu/ops/spmm_pallas.py:171",
     "spmm_tile_partials[bf16]": "falcon_ttdforgnns_tpu/ops/spmm_pallas.py:171",
-    "spmm_gather": "falcon_ttdforgnns_tpu/ops/spmm_blocked.py:140"}
+    "spmm_gather": "falcon_ttdforgnns_tpu/ops/spmm_blocked.py:140",
+    # no TPU kernel: the XLA bf16 mean of the reference's conv tower, which
+    # these kernels reproduce bit for bit
+    "fanout_mean_bf16": "falcon_ttdforgnns_tpu/models/sage.py:185",
+    "fanout_mean_bf16[bwd]": "falcon_ttdforgnns_tpu/models/sage.py:185"}
 ARXIV = dict(p_shapes=(50, 60, 60), q_shapes=(8, 4, 4), tt_ranks=(16, 16))  # the arxiv preset
 
 
@@ -657,7 +682,8 @@ def hold_loss(kw, step, on_card, on_cpu, bf16: bool) -> None:
                              f"vs on the CPU {float(on_cpu)}")
 
 
-def hold_params(kw, gpu, cpu, bf16: bool, flat=None, steps: int = 3) -> None:
+def hold_params(kw, gpu, cpu, bf16: bool, flat=None, steps: int = 3,
+                where: str = "tiny graph") -> None:
     """small_step_check's parameter tolerances after `steps` steps.  In f32,
     `flat` (from adam_flat) may name, per parameter, the elements whose
     Adam step was not normalised on either side: those are held to
@@ -682,7 +708,7 @@ def hold_params(kw, gpu, cpu, bf16: bool, flat=None, steps: int = 3) -> None:
             ok = ok and ferr <= FLAT_ADAM_TOL * LR
             what += (f" but for {sum(int(f.sum()) for f in flat)} elements with an unnormalised "
                      f"Adam step: {past} past it, max {ferr:.3e} (tol {FLAT_ADAM_TOL * LR:.1e})")
-    log(f"  tiny graph {kw}: {steps} steps, loss ok, {what} {'ok' if ok else 'FAILED'}")
+    log(f"  {where} {kw}: {steps} steps, loss ok, {what} {'ok' if ok else 'FAILED'}")
     if not ok:
         raise AssertionError(f"{kw}: params disagree")
 
@@ -783,8 +809,8 @@ def train_steps(trainer, batches, label):
 
 def kernel_modules():
     """The wrapper modules, each with its KERNELS and launch counts."""
-    from falcon_ttdforgnns_torch.ops import spmm_blocked, spmm_tiled, tt_kernels
-    return tt_kernels, spmm_tiled, spmm_blocked
+    from falcon_ttdforgnns_torch.ops import spmm_blocked, spmm_tiled, tower, tt_kernels
+    return tt_kernels, spmm_tiled, spmm_blocked, tower
 
 
 def reset_counts() -> None:
@@ -1441,7 +1467,14 @@ def main_path_phase(ds, config, K, dev, counts) -> list:
         f"(device memory {(torch.cuda.memory_allocated() - before) / 2**20:.0f} MiB more)")
     kept = tap_sampler(trainer)
     must = ("tt_fwd[bf16]", "tt_grads[bf16]", "tt_adam_apply")
-    counts["main"] = counted_epoch(trainer, 0, "puregpu bf16 sparse", must, STEPS_MAIN)
+    counts["main"] = counted_epoch(trainer, 0, "puregpu bf16 sparse",
+                                   must + ("fanout_mean_bf16", "fanout_mean_bf16[bwd]"),
+                                   STEPS_MAIN)
+    means = len(level_shapes(fanouts=cfg.fanouts))
+    if (counts["main"]["fanout_mean_bf16"], counts["main"]["fanout_mean_bf16[bwd]"]) != (
+            means * STEPS_MAIN, means * STEPS_MAIN):
+        raise AssertionError(f"the main path's fan-out means: {counts['main']}, expected "
+                             f"{means} forward and backward a step")
     main_ids = [collect_level_ids(sd, ls)[0].to(torch.int32) for sd, ls in kept]
     sampler_check(ds, trainer, kept, dev)
     cores = [c.detach() for c in trainer.cores]
@@ -1747,7 +1780,24 @@ def final_p_phase(ds, config, K, dev, counts) -> None:
     if missing:
         raise AssertionError(f"final-p: {missing} never launched")
     log(f"  hit share of the cached steps: {', '.join(f'{h:.2%}' for h in hits)}")
-    del tr
+    fresh = SageTrainer(dataclasses.replace(ds, train_idx=warm), cfg, device=dev)
+    checkpoint_roundtrip(tr, fresh, "final-p (cache rows, metadata, rowwise accumulator)")
+    for t in (tr, fresh):  # as the next epoch's start reseeds it (train_epoch)
+        t.dropout_gen.manual_seed(cfg.seed + 1000 + 2)
+    for i, b in enumerate(batches[:CKPT_STEPS]):
+        la, _ = tr.train_step(b.seeds, b.layers, b.labels)
+        lb, _ = fresh.train_step(b.seeds, b.layers, b.labels)
+        hold_loss(dict(final_p="restored"), i, lb, la, False)
+    # the losses at the f32 margin, the parameters at the margin of two runs
+    # whose normalised updates round apart (hold_params' bf16 branch): the
+    # cache rows' rowwise adagrad divides by each row's own gradient so far
+    # (sqrt(acc) ~2e-7 at the median row, scripts/restore_drift.py), so a
+    # row whose gradient is a near-cancelled sum of hits steps elsewhere when
+    # the atomics of the card's index_add_ order the sum otherwise, and the
+    # Adam parameters follow through the forward (0.0095-0.81 lr apart over
+    # runs, up to 33 rows)
+    hold_params(dict(final_p="restored"), fresh, tr, True, steps=CKPT_STEPS, where="products")
+    del tr, fresh
     plain = SageTrainer(dataclasses.replace(ds, train_idx=warm), config(), device=dev)
     plain.train_epoch(0)
     uncached = train_steps(plain, batches, "final-p without the cache")
@@ -1848,6 +1898,326 @@ def small_cache_check(dev):
             raise AssertionError(f"{kw}: params on the card and on the CPU disagree")
 
 
+def level_shapes(B: int = 1024, fanouts=(5, 10, 15), dims=(100, 256, 256)) -> list:
+    """The (B, n, f, d) inputs of the conv tower's fan-out means in one step
+    of SAGE 3 x 256 at --fan-out 5,10,15: layer l means the levels left
+    after it, the seeds' level first (3 + 2 + 1 means)."""
+    widths = [1]
+    for f in reversed(fanouts):
+        widths.append(widths[-1] * f)
+    return [(B, widths[lev], widths[lev + 1] // widths[lev], dims[li])
+            for li in range(len(fanouts)) for lev in range(len(fanouts) - li)]
+
+
+def tower_kernel_check(dev) -> dict:
+    """The bf16 fan-out mean's kernels (forward and backward, the port's own:
+    the reference takes this mean as an XLA reduction) against their plain
+    versions on the flagship's six level shapes, normal and large values,
+    bit for bit; then the six calls of one step timed, kernel against plain
+    version, beside PyTorch's bf16 mean (another function: f32
+    accumulation, so no library time).  Returns per-kernel results."""
+    import torch
+    from falcon_ttdforgnns_torch.ops import tower
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shapes = level_shapes()
+    xs = [torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16) for sh in shapes]
+    gs = [torch.randn(sh[:2] + sh[3:], generator=gen, device=dev).to(torch.bfloat16)
+          for sh in shapes]
+    worst = dict.fromkeys(tower.KERNELS, 0.0)
+    for scale in (1.0, 3e4):
+        for sh, x, g in zip(shapes, xs, gs):
+            x, g = (x.float() * scale).to(torch.bfloat16), (g.float() * scale).to(torch.bfloat16)
+            for name, got, want in (
+                    ("fanout_mean_bf16", tower.fanout_mean_bf16_fwd(x),
+                     tower.fanout_mean_bf16_plain(x)),
+                    ("fanout_mean_bf16[bwd]", tower.fanout_mean_bf16_bwd(g, sh[2]),
+                     tower.fanout_mean_bf16_bwd_plain(g, sh[2]))):
+                if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                    raise AssertionError(f"{name} at {sh}, scale {scale}: not bit-identical "
+                                         f"to its plain version")
+                worst[name] = max(worst[name], float((got.float() - want.float()).abs().max()))
+    log(f"  fanout_mean_bf16 and its backward bit-identical to their plain versions at "
+        f"{shapes}, values N(0, 1) and N(0, 3e4^2)")
+    n_in = sum(math.prod(sh) for sh in shapes)            # (B, n, f, d) values
+    n_out = sum(math.prod(sh[:2] + sh[3:]) for sh in shapes)  # (B, n, d)
+    fs = [sh[2] for sh in shapes]
+    res = {"fanout_mean_bf16": dict(
+        max_abs_err=worst["fanout_mean_bf16"],
+        ms=cuda_ms(lambda: [tower.fanout_mean_bf16_fwd(x) for x in xs], 20),
+        plain_ms=cuda_ms(lambda: [tower.fanout_mean_bf16_plain(x) for x in xs], 3),
+        library_ms=None), "fanout_mean_bf16[bwd]": dict(
+        max_abs_err=worst["fanout_mean_bf16[bwd]"],
+        ms=cuda_ms(lambda: [tower.fanout_mean_bf16_bwd(g, f) for g, f in zip(gs, fs)], 20),
+        plain_ms=cuda_ms(lambda: [tower.fanout_mean_bf16_bwd_plain(g, f)
+                                  for g, f in zip(gs, fs)], 3),
+        library_ms=None)}
+    # bf16 in and out once each; f32 operations: f adds and the division
+    # an output (forward), one division a value (backward)
+    for name in tower.KERNELS:
+        res[name]["bound_ms"], res[name]["bound_by"] = bound_ms(2 * (n_in + n_out), n_in)
+    torch_mean = cuda_ms(lambda: [x.mean(dim=2) for x in xs], 20)
+    for name, r in res.items():
+        log(f"  {name}, one step's six means: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+    log(f"  PyTorch's bf16 mean on the same inputs (f32 accumulation, not the reference's "
+        f"bits): {torch_mean:.4f} ms")
+    return res
+
+
+def state_bytes(trainer) -> int:
+    """Bytes of the trainer's parameters and optimizer state (every
+    tensor of checkpoint_state's opt_state)."""
+    import torch
+    ts = list(trainer.model.parameters())
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            ts.append(o)
+        elif isinstance(o, dict):
+            for v in o.values():
+                walk(v)
+        elif isinstance(o, (list, tuple)):
+            for v in o:
+                walk(v)
+
+    walk(trainer.checkpoint_state()[1])
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def baseline_phase(ds, config, dev, counts) -> None:
+    """The README's baseline preset (scripts/run_presets.sh): --no-tt, the
+    dense 2,449,029 x 100 f32 table, routed Adam, f32: STEPS_MAIN steps in
+    --mode mixed (the preset's mode; host-sampled as train_epoch does),
+    then --mode puregpu epochs of STEPS_MAIN steps (counted, profiled,
+    timed) and evaluate(); then the TT flagship in f32 (--sparse, fused
+    Adam) on the same puregpu batches.  ms a step, seeds/s, device busy a
+    step, peak memory, and the bytes of parameters and optimizer state of
+    each: the TT-against-dense comparison on one card."""
+    import torch
+    from falcon_ttdforgnns_torch.train import SageTrainer
+    S = STEPS_MAIN
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mixed = SageTrainer(ds, config(use_tt=False), device=dev)
+    table = mixed.model.embed.weight
+    log(f"baseline --no-tt, --mode mixed: trainer built in {time.perf_counter() - t0:.1f} s, "
+        f"the table {tuple(table.shape)} f32 {table.numel() * 4 / 1e6:.1f} MB; parameters and "
+        f"optimizer state {state_bytes(mixed) / 1e9:.3f} GB")
+    host_sampled_steps(mixed, S, ())
+    del mixed, table
+    rows = {}
+    for key, label, kw in (("baseline", "baseline --no-tt", dict(use_tt=False)),
+                           ("tt f32", "the TT flagship in f32 (--sparse, fused Adam)",
+                            dict(sparse=True))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = SageTrainer(cut(ds, S), config(mode="puregpu", steps_per_call=S, **kw), device=dev)
+        reset_counts()
+        stats = tr.train_epoch(0)
+        counts[key] = launched()
+        if not math.isfinite(stats["loss"]):
+            raise AssertionError(f"{label}: loss {stats['loss']}")
+
+        def complete(ops):
+            if key == "baseline":
+                return sum(c for c, _ in ops.values()) >= 10 * S
+            tt = [c for k, (c, _) in ops.items() if "tt_fwd_kernel" in k or "tt_grads_kernel" in k]
+            return sorted(tt) == [S, S]
+
+        ops, wall_us, _ = complete_profile(lambda: tr.train_epoch(1), complete,
+                                           f"a {S}-step {label} epoch")
+        busy = None if ops is None else sum(us for _, us in ops.values()) / S / 1e3
+        stats = tr.train_epoch(2)
+        ms = stats["epoch_time"] * 1e3 / S
+        rows[key] = (ms, stats["samples_per_s"], busy, torch.cuda.max_memory_allocated(),
+                     state_bytes(tr))
+        log(f"  {label}, --mode puregpu: {ms:.2f} ms a step, {stats['samples_per_s']:.0f} "
+            f"seeds/s, device busy {'not measured' if busy is None else f'{busy:.3f} ms'} a "
+            f"step, peak device memory {rows[key][3] / 2**30:.2f} GiB, parameters and "
+            f"optimizer state {rows[key][4] / 1e6:.1f} MB; launches {counts[key]}")
+        if key == "baseline":
+            checked_evaluate(tr, "baseline evaluate", must_launch=())
+        del tr
+    (bm, bs, _, bp, bb), (tm, ts, _, tp, tb) = rows["baseline"], rows["tt f32"]
+    log(f"  TT against dense on one card, f32, the same puregpu batches: {tm:.2f} against "
+        f"{bm:.2f} ms a step ({ts:.0f} against {bs:.0f} seeds/s), state {tb / 1e6:.1f} against "
+        f"{bb / 1e6:.1f} MB ({bb / tb:.0f}x), peak memory {tp / 2**30:.2f} against "
+        f"{bp / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+
+
+def small_new_paths_check(dev) -> None:
+    """--no-tt --access-counts sampled steps, and --full-neighbor with TT
+    (--sparse, which full-neighbor turns into routed Adam) and with --no-tt,
+    on the tiny graph, card against CPU (plain versions), dropout off: 3
+    steps each on the same batches or seeds, held as small_puregpu_check
+    holds f32 steps (an element whose Adam step was not normalised on
+    either side to FLAT_ADAM_TOL); the access counts equal."""
+    import torch
+    from falcon_ttdforgnns_torch.graph import hard_synthetic_dataset
+    from falcon_ttdforgnns_torch.train import SageTrainer, TrainConfig
+    ds = hard_synthetic_dataset(num_nodes=3000, avg_degree=6, num_classes=5,
+                                feat_dim=64, seed=1)
+    for kw in (dict(use_tt=False, access_counts=True), dict(use_sample=False, sparse=True),
+               dict(use_sample=False, use_tt=False)):
+        cfg = TrainConfig(batch_size=128, fanouts=(3, 4), hidden_dim=32, num_layers=2,
+                          tt_ranks=(8, 8), dropout=0.0, seed=1, lr=LR, **kw)
+        gpu, cpu = SageTrainer(ds, cfg, device=dev), SageTrainer(ds, cfg, device="cpu")
+        flat = None
+        batches = iter(cpu.loader)
+        for step in range(3):
+            if cfg.use_sample:
+                b = next(batches)
+                lg, _ = gpu.train_step(b.seeds, b.layers, b.labels)
+                lc, _ = cpu.train_step(b.seeds, b.layers, b.labels)
+            else:
+                seeds = torch.as_tensor(ds.train_idx[step * 128:(step + 1) * 128]
+                                        .astype(np.int64))
+                lg, _ = gpu.full_neighbor_step(seeds.to(dev))
+                lc, _ = cpu.full_neighbor_step(seeds)
+            hold_loss(kw, step, lg, lc, False)
+            now = [a | b for a, b in zip(adam_flat(gpu), adam_flat(cpu))]
+            flat = now if flat is None else [a | b for a, b in zip(flat, now)]
+        hold_params(kw, gpu, cpu, False, flat)
+        if cfg.access_counts and not torch.equal(gpu.model.embed.counts.cpu(),
+                                                 cpu.model.embed.counts):
+            raise AssertionError(f"{kw}: the access counts differ")
+
+
+def full_neighbor_phase(ds, config, K, dev, counts) -> None:
+    """--full-neighbor SAGE 3 x 256 on the full-size products graph (TT
+    p=125,140,140 q=5,5,4 ranks 16,16, f32, routed Adam, batch 1024):
+    STEPS_FULL_NEIGHBOR steps through train_epoch with the launch counters
+    zeroed before and read after (tt_fwd over all 2,449,029 ids and
+    tt_grads in its backward, once each a step; one sort a step), their
+    ms and peak memory; one step profiled for the kernels' device time;
+    both kernels at this shape (every id once, sorted) timed against their
+    plain versions and bounds; evaluate()."""
+    import torch
+    from falcon_ttdforgnns_torch.train import SageTrainer
+    S = STEPS_FULL_NEIGHBOR
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = SageTrainer(cut(ds, S), config(use_sample=False), device=dev)
+    tr._eval_graph()  # the edge list on the card before the counted steps
+    log(f"--full-neighbor: SAGE {tr.cfg.num_layers}x{tr.cfg.hidden_dim}, f32, batch "
+        f"{tr.cfg.batch_size}, {S} steps over {ds.graph.num_edges} edges each")
+    counts["full-neighbor"] = counted_epoch(tr, 0, "full-neighbor", ("tt_fwd", "tt_grads"), S)
+    if (counts["full-neighbor"]["tt_fwd"], counts["full-neighbor"]["tt_grads"]) != (S, S):
+        raise AssertionError(f"full-neighbor launches {counts['full-neighbor']}: one tt_fwd "
+                             f"and one tt_grads a step expected")
+    peak = torch.cuda.max_memory_allocated()
+    seeds = torch.as_tensor(ds.train_idx[:1024].astype(np.int64), device=dev)
+    ops, wall_us, _ = complete_profile(
+        lambda: tr.full_neighbor_step(seeds),
+        lambda ops: sorted(c for k, (c, _) in ops.items()
+                           if "tt_fwd_kernel" in k or "tt_grads_kernel" in k) == [1, 1],
+        "a full-neighbor step")
+    dev_ms = {}
+    for name in ("tt_fwd_kernel", "tt_grads_kernel"):
+        dev_ms[name] = (None if ops is None else
+                        sum(us for k, (_, us) in ops.items() if name in k) / 1e3)
+    shapes, n = tr.shapes, ds.num_nodes
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    cores = [c.detach() for c in tr.cores]
+    walk, fwd_walk = walk_counts(K, shapes, ids)
+    fb, fby = fwd_bound(shapes, fwd_walk, 4)
+    gb, gby = grads_bound(shapes, walk, 4)
+    d_out = torch.randn((n, shapes.embedding_dim), device=dev)
+    fwd_ms = cuda_ms(lambda: K.tt_fwd(shapes, cores, ids), 5)
+    grads_ms = cuda_ms(lambda: K.tt_grads(shapes, cores, ids, d_out), 5)
+    fwd_plain = cuda_ms(lambda: K.tt_fwd_plain(shapes, cores, ids), 1)
+    grads_plain = cuda_ms(lambda: K.tt_grads_plain(shapes, cores, ids, d_out), 1)
+    del d_out
+
+    def ms4(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+
+    log(f"  {walk_line('the full-neighbor lookup', shapes, walk, fwd_walk)}")
+    log(f"  tt_fwd over all {n} ids (f32 store): {fwd_ms:.4f} ms a call with the sort "
+        f"(device, in the profiled step: {ms4(dev_ms['tt_fwd_kernel'])}), plain "
+        f"{fwd_plain:.2f} ms, bound {fb:.4f} ms by {fby}")
+    log(f"  tt_grads over all {n} ids (f32 d_out): {grads_ms:.4f} ms a call with the sort "
+        f"(device: {ms4(dev_ms['tt_grads_kernel'])}), plain {grads_plain:.2f} ms, bound "
+        f"{gb:.4f} ms by {gby}")
+    busy = None if ops is None else sum(us for _, us in ops.values()) / 1e3
+    log(f"  the profiled step: {ms4(None if ops is None else wall_us / 1e3)} (profiler on), "
+        f"device busy {ms4(busy)}; peak device memory over the {S} steps "
+        f"{peak / 2**30:.2f} GiB")
+    checked_evaluate(tr, "full-neighbor evaluate")
+    del tr, cores, ids
+    torch.cuda.empty_cache()
+
+
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints", "chip_smoke")
+
+
+def same_state(a, b, where: str = "") -> None:
+    """Raise unless two nested checkpoint states are equal: tensors bit for
+    bit (wherever they lie), containers key for key, other values by ==."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        if not (isinstance(b, torch.Tensor) and a.shape == b.shape and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu())):
+            raise AssertionError(f"restored state differs at {where}")
+    elif isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            raise AssertionError(f"restored state differs at {where}: keys")
+        for k in a:
+            same_state(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"restored state differs at {where}: length")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_state(x, y, f"{where}[{i}]")
+    elif a != b:
+        raise AssertionError(f"restored state differs at {where}: {a!r} against {b!r}")
+
+
+def checkpoint_roundtrip(saved, fresh, label: str) -> None:
+    """saved.save(), fresh.restore() of that file: the save's and the
+    restore's seconds and the file's MB; every tensor of the state (model,
+    optimizers, plateau, generators, loader) restored bit for bit."""
+    import shutil
+    import torch
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = saved.save(CKPT_DIR)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fresh.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same_state(saved.checkpoint_state(), fresh.checkpoint_state(), label)
+    if fresh.step != saved.step:
+        raise AssertionError(f"{label}: step {fresh.step} restored, {saved.step} saved")
+    log(f"  {label} checkpoint: {os.path.getsize(path) / 1e6:.1f} MB, save {save_s:.2f} s, "
+        f"restore {restore_s:.2f} s; every tensor of the state restored bit for bit")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+def checkpoint_phase(ds, config, dev) -> None:
+    """The puregpu flagship (--bf16 --sparse, fused Adam): an epoch of
+    CKPT_STEPS steps, save, a fresh trainer restored (checkpoint_roundtrip),
+    then both take the same next epoch and agree within hold_params'
+    card-vs-card margin (tt_grads adds with atomics, so bits may differ)."""
+    import torch
+    from falcon_ttdforgnns_torch.train import SageTrainer
+    S = CKPT_STEPS
+    cfg = config(mode="puregpu", sparse=True, bf16=True, steps_per_call=S)
+    first = SageTrainer(cut(ds, S), cfg, device=dev)
+    first.train_epoch(0)
+    restored = SageTrainer(cut(ds, S), cfg, device=dev)
+    checkpoint_roundtrip(first, restored, "flagship")
+    losses = [t.train_epoch(1)["loss"] for t in (first, restored)]
+    hold_loss(dict(flagship="restored"), 1, losses[1], losses[0], True)
+    hold_params(dict(flagship="restored", epoch=1), restored, first, True, steps=S,
+                where="products")
+    del first, restored
+    torch.cuda.empty_cache()
+
+
 def collect_ids(batch):
     """collect_level_ids of a host batch, on the CPU."""
     import torch
@@ -1898,7 +2268,7 @@ def main() -> int:
             elif "spill" in line and kernel:
                 spill = line.strip()
             elif "registers" in line and kernel:
-                short = re.search(r"(?:tt_(?!kernels_cu)|tile_sum|window_gather)\w+",
+                short = re.search(r"(?:tt_(?!kernels_cu)|tile_sum|window_gather|fanout_mean)\w+",
                                   kernel)
                 log(f"  ptxas {short.group(0)[:44] if short else kernel}: "
                     f"{line.split(':', 1)[1].strip()}; {spill}")
@@ -1931,6 +2301,11 @@ def main() -> int:
     log("the flagship's phases (nothing else running on the host):")
     other_b = main_path_phase(ds, config, K, dev, counts)
     table_phase(ds, config, dev, counts)
+    log("the baseline preset (--no-tt) and the TT flagship in f32:")
+    baseline_phase(ds, config, dev, counts)
+    log("--no-tt and --full-neighbor steps, card vs CPU on the tiny graph:")
+    small_new_paths_check(dev)
+    full_neighbor_phase(ds, config, K, dev, counts)
 
     # the two slow orderings start only after the phases whose host time is
     # read: --partition 128 in a thread (the native partitioner, one core),
@@ -1945,6 +2320,11 @@ def main() -> int:
     log("(d) the cache's lifecycle, card vs CPU:")
     small_cache_check(dev)
     torch.cuda.empty_cache()
+    log("the bf16 fan-out mean's kernels against their plain versions:")
+    tower_res = tower_kernel_check(dev)
+    log("checkpoint of the puregpu flagship (save and restore seconds beside the partition "
+        "thread):")
+    checkpoint_phase(ds, config, dev)
     log("(a) the orderings: host seconds at arxiv (-1 and -4, one process beside the "
         "--partition 128 thread and step 4) and at products (128 in its thread beside the "
         "arxiv process and step 4; -2 and -3 alone, after both)")
@@ -2008,6 +2388,7 @@ def main() -> int:
     counts.update({f"evaluate --spmm {k}": v for k, v in route_counts.items()})
     spmm_res, counts["kernel phase"] = spmm_kernel_phase(ds, spmms, dev)
     res.update(spmm_res)
+    res.update(tower_res)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"total {time.perf_counter() - t_all:.0f} s")
 
@@ -2020,9 +2401,11 @@ def main() -> int:
                "spmm_tiled": "evaluate --spmm pallas",
                "spmm_tiled[bf16]": "kernel phase", "spmm_tile_partials": "kernel phase",
                "spmm_tile_partials[bf16]": "kernel phase",
-               "spmm_gather": "full-graph gcn blocked"}
+               "spmm_gather": "full-graph gcn blocked",
+               "fanout_mean_bf16": "main", "fanout_mean_bf16[bwd]": "main"}
     kernels = [{"name": n, "route": "cuda",
-                "source": TT_SOURCE if n.startswith("tt_") else SPMM_SOURCE,
+                "source": (TT_SOURCE if n.startswith("tt_") else TOWER_SOURCE
+                           if n.startswith("fanout_") else SPMM_SOURCE),
                 "replaces": REPLACES[n], "launches": counts[path_of[n]][n],
                 "launched_by": path_of[n],
                 "max_abs_err": res[n]["max_abs_err"], "ms": res[n]["ms"],

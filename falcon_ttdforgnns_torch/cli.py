@@ -10,13 +10,20 @@ on CUDA unless ``--device cpu``.
         --spmm blocked --epochs 10
 
 Port of ``falcon_ttdforgnns_tpu/cli.py``; ``--run-one`` takes a single
-train step (GCN/GAT: one epoch, which is one step) and exits.
+train step (GCN/GAT: one epoch, which is one step) and exits.  After
+training, ``--save-pred`` writes ``pred_{model}_{dataset}.npz`` (``pred``,
+``logits``) of the layer-wise inference and ``--save-model`` a checkpoint
+(``extra`` holds the best accuracies), both into ``--ckpt-dir``;
+``--access-counts`` logs the access skew.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
+
+import numpy as np
 
 
 def main(argv=None):
@@ -25,8 +32,7 @@ def main(argv=None):
 
     args = apply_preset(parse_args(argv))
     logger = get_logger("falcon_torch", args.log_dir)
-    for flag in ("multihost", "autotune", "profile", "save_model", "save_pred",
-                 "store_emb", "plot"):
+    for flag in ("multihost", "autotune", "profile", "store_emb", "plot"):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not "
                                       f"ported yet (ROADMAP A7-A9)")
@@ -39,6 +45,8 @@ def main(argv=None):
 
     from .graph import get_dataset, reorder_permutation_cached
     from .train import FullGraphConfig, FullGraphTrainer, SageTrainer, TrainConfig
+    from .train.checkpoint import save_checkpoint
+    from .utils import metrics as M
 
     t0 = time.time()
     ds = get_dataset(args.dataset, synthetic_scale=args.synthetic_scale,
@@ -76,9 +84,7 @@ def main(argv=None):
                 stats = trainer.train_epoch(0)
                 logger.info(f"run-one: {stats}")
                 return stats
-            result = trainer.fit()
-            logger.info(f"best: {result['best']}")
-            return result
+            return after_fit(trainer, trainer.fit())
         cfg = TrainConfig(
             batch_size=args.batch, fanouts=tuple(args.fan_out),
             epochs=args.epochs, lr=args.lr, dropout=args.dropout,
@@ -97,7 +103,9 @@ def main(argv=None):
             rng_impl=args.rng_impl, num_workers=args.num_workers,
             use_sample=args.use_sample,
             node_shard=args.node_shard, steps_per_call=args.steps_per_call,
-            access_counts=args.access_counts and not args.use_tt,
+            # the model counts only without TT (make_embed_layer's order); the
+            # host loader counts either way, as the JAX loader always does
+            access_counts=args.access_counts,
             skip_eval=args.skip_eval, eval_sampled=args.eval_sampled,
             eval_sample_max=args.eval_sample_max, eval_every=args.eval_every,
             log_every=args.log_every, seed=args.seed, dist=args.dist,
@@ -116,8 +124,28 @@ def main(argv=None):
             stats = {"loss": loss, "step_time": time.perf_counter() - t1}
             logger.info(f"run-one: {stats}")
             return stats
-        result = trainer.fit()
+        return after_fit(trainer, trainer.fit())
+
+    def after_fit(trainer, result):
         logger.info(f"best: {result['best']}")
+        if args.save_pred and not args.skip_eval and hasattr(trainer, "infer_full"):
+            # the per-node prediction dump (sage_dgl_partition.py:373-374)
+            logits = trainer.infer_full().float().cpu().numpy()
+            os.makedirs(args.ckpt_dir, exist_ok=True)
+            np.savez(os.path.join(args.ckpt_dir, f"pred_{args.model}_{args.dataset}.npz"),
+                     pred=logits.argmax(-1), logits=logits)
+            logger.info("saved predictions")
+        if args.access_counts and hasattr(trainer, "access_count_stats"):
+            stats = trainer.access_count_stats()
+            if stats:
+                logger.info(f"access skew (top-x% of rows -> % of accesses): "
+                            f"{stats['percentages']}")
+        logger.info(f"embed params MB: "
+                    f"{M.model_size_mb(trainer.model.embed.parameters()):.2f}")
+        if args.save_model:
+            path = save_checkpoint(args.ckpt_dir, trainer_step(trainer),
+                                   *trainer.checkpoint_state(), {"best": result["best"]})
+            logger.info(f"checkpoint: {path}")
         return result
 
     best = None
@@ -130,6 +158,10 @@ def main(argv=None):
             best = result["best"]
     if best:
         print(json.dumps({"best": best}))
+
+
+def trainer_step(trainer) -> int:
+    return getattr(trainer, "step", 0)
 
 
 def _maybe_init_cores(args, ds, logger):

@@ -4,14 +4,18 @@
 numpy arrays (``jax.tree.map(np.asarray, variables["params"])``) — to a
 ``state_dict`` of :class:`~falcon_ttdforgnns_torch.models.sage.SAGE`:
 
-* ``params["embed"]["tt_core_k"]`` -> ``embed.tt_core_k``, and
-  ``params["embed"]["cache_weight"]`` -> ``embed.cache_weight``;
+* the embedding's params by :func:`embedding_state_from_jax` under
+  ``embed.``: ``tt_core_k`` and ``cache_weight`` of the TT embedding, the
+  dense table's ``weight``, the access-counting table's ``table.weight``;
 * ``params["conv_i"]["self"]["kernel"/"bias"]`` -> ``convs.i.lin_self``
   ``weight`` (transposed: flax keeps (in, out), ``nn.Linear`` (out, in))
   and ``bias``;
 * ``params["conv_i"]["neigh"]["kernel"]`` -> ``convs.i.lin_neigh.weight``.
 
-``load_jax_variables`` also carries the fused optimizer state
+``load_jax_variables`` also carries the embedding's collections
+(``variables["access_counts"]["embed"]["counts"]`` -> ``embed.counts``,
+``variables["constants"]["embed"]["feats"]`` -> ``embed.feats``), the fused
+optimizer state
 ``variables["tt_opt"]`` into a trainer: the Adam moments and step count
 (``m_k``, ``v_k``, ``t``) or the adagrad accumulators (``acc_k``); the
 hot-row cache's metadata ``variables["ttcache"]["embed"]["meta"]``
@@ -56,12 +60,36 @@ def _linear(out: Dict[str, torch.Tensor], name: str, dense: Dict) -> None:
         out[f"{name}.bias"] = _t(dense["bias"])
 
 
-def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+def embedding_state_from_jax(variables: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` (keys under ``prefix``) of a port embedding module
+    from the variables of the JAX one: its params (``tt_core_k``,
+    ``cache_weight``, ``weight``, and a submodule's, such as the
+    access-counting ``table`` or the one-table ``tables``, nested), and
+    its ``access_counts`` (-> ``counts``, int32) and ``constants`` (->
+    ``feats``) collections.  Table-batched cores keep their leading table
+    axis."""
     out: Dict[str, torch.Tensor] = {}
-    for name, arr in params["embed"].items():
-        if not (name.startswith("tt_core_") or name == "cache_weight"):
-            raise ValueError(f"unsupported embedding param {name!r}")
-        out[f"embed.{name}"] = torch.tensor(np.asarray(arr, np.float32))
+
+    def walk(tree: Dict, pre: str) -> None:
+        for name, arr in tree.items():
+            if isinstance(arr, dict):
+                walk(arr, f"{pre}{name}.")
+            elif name.startswith("tt_core_") or name in ("cache_weight", "weight"):
+                out[pre + name] = _t(arr)
+            else:
+                raise ValueError(f"unsupported embedding param {name!r}")
+
+    walk(variables.get("params", {}), prefix)
+    if "access_counts" in variables:
+        out[prefix + "counts"] = torch.tensor(
+            np.asarray(variables["access_counts"]["counts"], np.int32))
+    if "constants" in variables:
+        out[prefix + "feats"] = _t(variables["constants"]["feats"])
+    return out
+
+
+def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    out = embedding_state_from_jax({"params": params["embed"]}, "embed.")
     convs = sorted((n for n in params if n.startswith("conv_")),
                    key=lambda n: int(n.split("_")[1]))
     for n in convs:
@@ -84,6 +112,9 @@ def load_jax_variables(trainer, variables: Dict, cache_acc=None) -> None:
     accumulators) when both sides carry it; ``cache_acc`` (K,) is the
     cache group's accumulator."""
     state = params_from_jax(variables["params"])
+    state.update(embedding_state_from_jax(
+        {k: variables[k]["embed"] for k in ("access_counts", "constants") if k in variables},
+        "embed."))
     if "ttcache" in variables:
         meta = variables["ttcache"]["embed"]["meta"]
         for field in ("freq", "ids", "ready"):

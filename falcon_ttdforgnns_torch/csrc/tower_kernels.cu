@@ -1,0 +1,164 @@
+// Hopper (sm_90a) kernels of the SAGE conv tower: the bf16 fan-out mean and
+// its backward.  Built by nvcc into a shared library with a plain C
+// interface and loaded through ctypes (falcon_ttdforgnns_torch/ops/
+// _build.py); the Python wrappers live in ops/tower.py next to their plain
+// versions.
+//
+// No TPU kernel is replaced: the JAX package takes this mean as an XLA
+// reduction, jnp.mean(axis=2, dtype=bfloat16) in models/sage.py, and XLA
+// sums the f slices left to right, rounding each partial sum to bf16, then
+// divides by f and rounds once more.  PyTorch's bf16 mean accumulates in
+// f32 and rounds once, which differs in most outputs; this kernel gives the
+// reference's bits in one launch where a loop of torch adds would take f
+// launches a level (44 a flagship step over its six means).
+//
+// fanout_mean_bf16: x (rows, f, d) bf16 -> out (rows, d) bf16,
+//   acc = x[:, 0]; acc = rn_bf16(acc + x[:, j]) for j = 1..f-1 (the sum of
+//   two bf16 values is exact in f32 up to the one rounding, as in XLA's
+//   upcast add); out = rn_bf16(acc / f) with IEEE f32 division.
+// fanout_mean_bf16_bwd: g (rows, d) bf16 -> dx (rows, f, d) bf16,
+//   dx[:, j] = rn_bf16(g / f), the gradient of sum / f.
+// Bound on H100: bytes (each input read once, each output written once,
+//   1 add a read value); the flagship's largest level reads (1024 * 150,
+//   5, 100) bf16, 153.6 MB, 0.046 ms at 3.35 TB/s; its six means a step
+//   move 325 MB, 0.097 ms.  Design: one thread per
+//   (row, 2c, 2c + 1) pair of the (rows, d) side where d is even (bf16x2
+//   loads and stores, 4 bytes a lane, so a warp covers 128 contiguous
+//   bytes of one slice per j; the f slices of a row lie d apart), else one
+//   thread per value; the thread walks the f slices (summing them forward,
+//   writing them backward); a 1-D grid strides over the pairs.
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "device_info.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__global__ void __launch_bounds__(kThreads) fanout_mean_pairs(
+    const __nv_bfloat162* __restrict__ x, long long pairs, int half_d, int f,
+    __nv_bfloat162* __restrict__ out) {
+  const float fd = static_cast<float>(f);
+  for (long long o = (long long)blockIdx.x * kThreads + threadIdx.x; o < pairs;
+       o += (long long)gridDim.x * kThreads) {
+    const long long row = o / half_d;
+    const int c = static_cast<int>(o - row * half_d);
+    const __nv_bfloat162* p = x + row * f * half_d + c;
+    float2 acc = __bfloat1622float2(p[0]);
+    for (int j = 1; j < f; ++j) {
+      const float2 v = __bfloat1622float2(p[(long long)j * half_d]);
+      acc.x = round_bf16(acc.x + v.x);
+      acc.y = round_bf16(acc.y + v.y);
+    }
+    out[o] = __floats2bfloat162_rn(acc.x / fd, acc.y / fd);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) fanout_mean_scalar(
+    const __nv_bfloat16* __restrict__ x, long long n_out, int d, int f,
+    __nv_bfloat16* __restrict__ out) {
+  for (long long o = (long long)blockIdx.x * kThreads + threadIdx.x; o < n_out;
+       o += (long long)gridDim.x * kThreads) {
+    const long long row = o / d;
+    const int c = static_cast<int>(o - row * d);
+    const __nv_bfloat16* p = x + row * f * d + c;
+    float acc = __bfloat162float(p[0]);
+    for (int j = 1; j < f; ++j) acc = round_bf16(acc + __bfloat162float(p[(long long)j * d]));
+    out[o] = __float2bfloat16_rn(acc / static_cast<float>(f));
+  }
+}
+
+// dx (rows, f, d) from g (rows, d): a thread per value (or bf16x2 pair,
+// where d is even) of g, which it reads once and writes to its f slices,
+// each slice's writes coalesced across the warp.
+__global__ void __launch_bounds__(kThreads) fanout_mean_bwd_pairs(
+    const __nv_bfloat162* __restrict__ g, long long pairs, int half_d, int f,
+    __nv_bfloat162* __restrict__ dx) {
+  const float fd = static_cast<float>(f);
+  for (long long o = (long long)blockIdx.x * kThreads + threadIdx.x; o < pairs;
+       o += (long long)gridDim.x * kThreads) {
+    const long long row = o / half_d;
+    const int c = static_cast<int>(o - row * half_d);
+    const float2 v = __bfloat1622float2(g[o]);
+    const __nv_bfloat162 q = __floats2bfloat162_rn(v.x / fd, v.y / fd);
+    __nv_bfloat162* p = dx + row * f * half_d + c;
+    for (int j = 0; j < f; ++j) p[(long long)j * half_d] = q;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) fanout_mean_bwd_scalar(
+    const __nv_bfloat16* __restrict__ g, long long n_in, int d, int f,
+    __nv_bfloat16* __restrict__ dx) {
+  for (long long o = (long long)blockIdx.x * kThreads + threadIdx.x; o < n_in;
+       o += (long long)gridDim.x * kThreads) {
+    const long long row = o / d;
+    const int c = static_cast<int>(o - row * d);
+    const __nv_bfloat16 q = __float2bfloat16_rn(__bfloat162float(g[o]) / static_cast<float>(f));
+    __nv_bfloat16* p = dx + row * f * d + c;
+    for (int j = 0; j < f; ++j) p[(long long)j * d] = q;
+  }
+}
+
+// Blocks of kThreads for `work` items: enough for 8 blocks an SM, no more
+// than the work needs.
+int grid_for(long long work) {
+  const long long need = (work + kThreads - 1) / kThreads;
+  const long long cap = 8LL * sm_count();
+  return static_cast<int>(need < cap ? need : cap);
+}
+
+bool aligned4(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 3) == 0; }
+
+}  // namespace
+
+extern "C" {
+
+const char* tower_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// x (rows, f, d) bf16, contiguous -> out (rows, d) bf16.
+int fanout_mean_bf16(const void* x, long long rows, int f, int d, void* out, void* stream) {
+  if (rows < 0 || f <= 0 || d <= 0) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d % 2 == 0 && aligned4(x) && aligned4(out)) {
+    const long long pairs = rows * (d / 2);
+    fanout_mean_pairs<<<grid_for(pairs), kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat162*>(x), pairs, d / 2, f,
+        static_cast<__nv_bfloat162*>(out));
+  } else {
+    const long long n_out = rows * d;
+    fanout_mean_scalar<<<grid_for(n_out), kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), n_out, d, f, static_cast<__nv_bfloat16*>(out));
+  }
+  return cudaGetLastError();
+}
+
+// g (rows, d) bf16, contiguous -> dx (rows, f, d) bf16.
+int fanout_mean_bf16_bwd(const void* g, long long rows, int f, int d, void* dx, void* stream) {
+  if (rows < 0 || f <= 0 || d <= 0) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d % 2 == 0 && aligned4(g) && aligned4(dx)) {
+    const long long pairs = rows * (d / 2);
+    fanout_mean_bwd_pairs<<<grid_for(pairs), kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat162*>(g), pairs, d / 2, f,
+        static_cast<__nv_bfloat162*>(dx));
+  } else {
+    const long long n_in = rows * d;
+    fanout_mean_bwd_scalar<<<grid_for(n_in), kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(g), n_in, d, f, static_cast<__nv_bfloat16*>(dx));
+  }
+  return cudaGetLastError();
+}
+
+}  // extern "C"

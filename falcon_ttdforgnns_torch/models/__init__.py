@@ -1,1 +1,1 @@
-from .sage import SAGE, collect_level_ids
+from .sage import SAGE, collect_level_ids, make_embed_layer

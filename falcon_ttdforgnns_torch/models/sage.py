@@ -7,11 +7,11 @@ full-graph propagation over the COO edge list.
 ``bf16`` (``--bf16``/``--bf16-tower``) runs the conv tower in bfloat16:
 every level is cast, the convs compute in bf16 (params stay f32), and the
 logits are cast back to f32.  ``bf16_f32_head``/``bf16_f32_first`` run the
-last/first conv in f32 instead; ``mean_acc_f32`` takes the fan-out means
-as ``mean(dtype=float32)`` cast back to bf16.  PyTorch's bf16 ``mean``
-already accumulates in f32 on the CPU and on the card, so that flag
-changes no bit here (tests/test_torch_sage.py, tests/test_torch_cuda.py);
-the port does not emulate the JAX package's bf16 partial sums.
+last/first conv in f32 instead.  The bf16 fan-out means are the JAX
+package's ``mean(dtype=bfloat16)`` bit for bit (:func:`fanout_mean_bf16`:
+partial sums rounded to bf16, one kernel on the card), and
+``mean_acc_f32`` takes them as ``mean(dtype=float32)`` cast back to bf16,
+the reference's f32 accumulator.
 """
 
 from __future__ import annotations
@@ -23,8 +23,34 @@ import torch
 from torch import nn
 
 from ..nn.layers import SAGEConv, dropout
-from ..nn.tt_embedding import TTEmbeddingBag
+from ..nn.tt_embedding import (AccessCountingEmbedding, DenseEmbedding,
+                               FixedFeatureEmbedding, TTEmbeddingBag)
 from ..ops.segment import spmm_mean
+from ..ops.tower import fanout_mean_bf16
+
+
+def make_embed_layer(num_nodes: int, feat_dim: int, use_tt: bool = True,
+                     tt_ranks: Sequence[int] = (16, 16),
+                     p_shapes: Optional[Sequence[int]] = None,
+                     q_shapes: Optional[Sequence[int]] = None,
+                     weight_dist: str = "approx-normal", cache_size: int = 0,
+                     access_counts: bool = False, precomputed_cores=None,
+                     fixed_features=None, batch_count: int = 131072,
+                     device_freq: bool = False,
+                     generator: Optional[torch.Generator] = None) -> nn.Module:
+    """The embedding layer, chosen in the JAX package's order
+    (``models/sage.py:make_embed_layer``): frozen features when given, else
+    the TT embedding, else the access-counting dense table under
+    ``access_counts``, else the dense table (drawn from ``generator``)."""
+    if fixed_features is not None:
+        return FixedFeatureEmbedding(fixed_features)
+    if use_tt:
+        return TTEmbeddingBag(num_nodes, feat_dim, tt_ranks, p_shapes, q_shapes,
+                              weight_dist, cache_size, precomputed_cores,
+                              batch_count=batch_count, device_freq=device_freq)
+    if access_counts:
+        return AccessCountingEmbedding(num_nodes, feat_dim, generator)
+    return DenseEmbedding(num_nodes, feat_dim, generator)
 
 
 def collect_level_ids(seeds: torch.Tensor, layers: Sequence[torch.Tensor]):
@@ -40,10 +66,11 @@ def collect_level_ids(seeds: torch.Tensor, layers: Sequence[torch.Tensor]):
 class SAGE(nn.Module):
     def __init__(self, num_nodes: int, in_dim: int, hidden_dim: int,
                  num_classes: int, num_layers: int = 3, dropout: float = 0.5,
-                 tt_ranks: Sequence[int] = (16, 16),
+                 use_tt: bool = True, tt_ranks: Sequence[int] = (16, 16),
                  p_shapes: Optional[Sequence[int]] = None,
                  q_shapes: Optional[Sequence[int]] = None,
                  weight_dist: str = "approx-normal", cache_size: int = 0,
+                 access_counts: bool = False,
                  precomputed_cores: Optional[Sequence[np.ndarray]] = None,
                  batch_count: int = 131072,
                  generator: Optional[torch.Generator] = None, bf16: bool = False,
@@ -53,10 +80,10 @@ class SAGE(nn.Module):
         self.num_nodes, self.in_dim = num_nodes, in_dim
         self.num_layers, self.dropout = num_layers, dropout
         self.bf16, self.mean_acc_f32 = bf16, mean_acc_f32
-        self.embed = TTEmbeddingBag(
-            num_nodes, in_dim, tt_ranks, p_shapes, q_shapes, weight_dist,
-            cache_size, precomputed_cores, batch_count=batch_count,
-            device_freq=device_freq)
+        self.embed = make_embed_layer(
+            num_nodes, in_dim, use_tt, tt_ranks, p_shapes, q_shapes, weight_dist,
+            cache_size, access_counts, precomputed_cores, batch_count=batch_count,
+            device_freq=device_freq, generator=generator)
         dims = [hidden_dim] * (num_layers - 1) + [num_classes]
         ins = [in_dim] + dims[:-1]
 
@@ -97,10 +124,12 @@ class SAGE(nn.Module):
             for lev in range(len(hs) - 1):
                 n, f = hs[lev].shape[1], hs[lev + 1].shape[1] // hs[lev].shape[1]
                 nb = hs[lev + 1].reshape(B, n, f, -1)
-                if self.mean_acc_f32 and nb.dtype == torch.bfloat16:
+                if nb.dtype != torch.bfloat16:
+                    h_neigh = nb.mean(dim=2)
+                elif self.mean_acc_f32:
                     h_neigh = nb.mean(dim=2, dtype=torch.float32).to(nb.dtype)
                 else:
-                    h_neigh = nb.mean(dim=2)
+                    h_neigh = fanout_mean_bf16(nb)
                 h = conv(hs[lev], h_neigh)
                 if li < self.num_layers - 1:
                     h = dropout(torch.relu(h), self.dropout, train, generator)

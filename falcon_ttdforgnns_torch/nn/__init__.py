@@ -1,2 +1,3 @@
 from .layers import SAGEConv
-from .tt_embedding import TTEmbeddingBag
+from .tt_embedding import (AccessCountingEmbedding, DenseEmbedding, FixedFeatureEmbedding,
+                           TableBatchedTTEmbeddingBag, TTEmbeddingBag)

@@ -1,4 +1,9 @@
-"""TTEmbeddingBag — TT-compressed node embeddings as a ``torch.nn.Module``.
+"""TTEmbeddingBag — TT-compressed node embeddings as a ``torch.nn.Module`` —
+and the other embedding modules of ``falcon_ttdforgnns_tpu/nn/tt_embedding.py``:
+:class:`DenseEmbedding` (the ``--no-tt`` table), :class:`AccessCountingEmbedding`
+(``--access-counts``), :class:`FixedFeatureEmbedding` (frozen real features)
+and :class:`TableBatchedTTEmbeddingBag` (``num_tables`` TT tables in one
+module).
 
 Port of ``falcon_ttdforgnns_tpu/nn/tt_embedding.py:TTEmbeddingBag``.  The
 cores are parameters ``tt_core_k`` of shape ``(p_k, r_k, q_k, r_{k+1})``.
@@ -124,3 +129,110 @@ class TTEmbeddingBag(nn.Module):
         self.cache_ids.copy_(meta.ids)
         self.cache_ready.copy_(meta.ready)
         self.cache_weight.copy_(weight)
+
+
+class DenseEmbedding(nn.Module):
+    """The plain (N, D) table of the no-TT baseline: ``weight`` drawn from
+    N(0, 0.1^2) (the JAX module's ``normal(0.1)`` initialiser), rows by
+    ``index_select``, sum-pooled over ``offsets`` when given.  Its gradient
+    is the dense (N, D) scatter of the rows', as in JAX."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 generator: Optional[torch.Generator] = None,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        weight = torch.empty((num_embeddings, embedding_dim), dtype=torch.float32)
+        self.weight = nn.Parameter(weight.normal_(0.0, 0.1, generator=generator).to(device))
+
+    def forward(self, indices: torch.Tensor, offsets: Optional[torch.Tensor] = None,
+                count_accesses: bool = True) -> torch.Tensor:
+        rows = self.weight.index_select(0, indices)
+        return rows if offsets is None else _pool(rows, offsets)
+
+
+class AccessCountingEmbedding(nn.Module):
+    """A :class:`DenseEmbedding` (the submodule ``table``) that counts each
+    row's accesses in the int32 buffer ``counts`` when a forward counts
+    accesses, duplicates included (JAX ``counts.at[indices].add(1)``)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 generator: Optional[torch.Generator] = None,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.register_buffer("counts", torch.zeros(num_embeddings, dtype=torch.int32,
+                                                   device=device))
+        self.table = DenseEmbedding(num_embeddings, embedding_dim, generator, device)
+
+    def forward(self, indices: torch.Tensor, offsets: Optional[torch.Tensor] = None,
+                count_accesses: bool = True) -> torch.Tensor:
+        if count_accesses:
+            with torch.no_grad():
+                self.counts.index_add_(0, indices, torch.ones_like(indices, dtype=torch.int32))
+        return self.table(indices, offsets)
+
+
+class FixedFeatureEmbedding(nn.Module):
+    """Frozen real node features: the (N, D) buffer ``feats`` (f32), rows by
+    ``index_select``, sum-pooled over ``offsets`` when given; nothing to
+    train."""
+
+    def __init__(self, features, device: Optional[torch.device] = None):
+        super().__init__()
+        self.register_buffer("feats", torch.as_tensor(
+            np.asarray(features, np.float32), device=device))
+
+    def forward(self, indices: torch.Tensor, offsets: Optional[torch.Tensor] = None,
+                count_accesses: bool = True) -> torch.Tensor:
+        rows = self.feats.index_select(0, indices)
+        return rows if offsets is None else _pool(rows, offsets)
+
+
+class TableBatchedTTEmbeddingBag(nn.Module):
+    """``num_tables`` TT tables in one module: indices (T, B) -> (T, B, D),
+    with offsets (T, num_bags + 1) -> (T, num_bags, D).  One table delegates
+    to :class:`TTEmbeddingBag` (the submodule ``tables``, cache included);
+    more keep the cores ``tt_core_k`` (T, p_k, r_k, q_k, r_{k+1}), table t's
+    drawn as the JAX module draws them (seed ``init_seed + 7919 k + 104729
+    t``), and ignore ``cache_size``, as the reference does with several
+    tables.  On the card each table's lookup is one ``tt_fwd`` (and one
+    ``tt_grads`` in the backward); on the CPU the plain chunked lookup."""
+
+    def __init__(self, num_tables: int, num_embeddings: int, embedding_dim: int,
+                 tt_ranks: Sequence[int] = (16, 16),
+                 p_shapes: Optional[Sequence[int]] = None,
+                 q_shapes: Optional[Sequence[int]] = None,
+                 weight_dist: str = "approx-normal", cache_size: int = 0,
+                 init_seed: int = 0, batch_count: int = 131072,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.num_tables, self.batch_count = num_tables, batch_count
+        if num_tables == 1:
+            self.tables = TTEmbeddingBag(num_embeddings, embedding_dim, tt_ranks, p_shapes,
+                                         q_shapes, weight_dist, cache_size,
+                                         init_seed=init_seed, batch_count=batch_count,
+                                         device=device)
+            self.shapes = self.tables.shapes
+            return
+        self.shapes = make_tt_shapes(num_embeddings, embedding_dim, tuple(tt_ranks),
+                                     p_shapes, q_shapes)
+        for k in range(self.shapes.ndim):
+            stacked = np.stack([tt_init.init_tt_cores(
+                self.shapes, weight_dist, seed=init_seed + 7919 * k + 104729 * t)[k]
+                for t in range(num_tables)]).astype(np.float32)
+            self.register_parameter(f"tt_core_{k}", nn.Parameter(
+                torch.tensor(stacked, device=device)))
+
+    def forward(self, indices: torch.Tensor,
+                offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.num_tables == 1:
+            return self.tables(indices[0], None if offsets is None else offsets[0])[None]
+        cores = [getattr(self, f"tt_core_{k}") for k in range(self.shapes.ndim)]
+        out = []
+        for t in range(self.num_tables):
+            cores_t = [c[t] for c in cores]
+            if cores_t[0].is_cuda:
+                rows = tt_lookup_fused(self.shapes, cores_t, indices[t].to(torch.int32))
+            else:
+                rows = tt_lookup_batched(self.shapes, cores_t, indices[t], self.batch_count)
+            out.append(rows if offsets is None else _pool(rows, offsets[t]))
+        return torch.stack(out)

@@ -52,8 +52,13 @@ _SIGNATURES: Dict[str, Dict[str, list]] = {
                           _p],
         "spmm_window_gather": [_p, _i, _ll, _i, _p, _p, _p, _i, _ll, _p, _p],
     },
+    "tower_kernels": {
+        "fanout_mean_bf16": [_p, _ll, _i, _i, _p, _p],
+        "fanout_mean_bf16_bwd": [_p, _ll, _i, _i, _p, _p],
+    },
 }
-_ERROR_STRING = {"tt_kernels": "tt_error_string", "spmm_kernels": "spmm_error_string"}
+_ERROR_STRING = {"tt_kernels": "tt_error_string", "spmm_kernels": "spmm_error_string",
+                 "tower_kernels": "tower_error_string"}
 SOURCES = tuple(_SIGNATURES)
 
 

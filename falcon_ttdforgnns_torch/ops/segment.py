@@ -26,10 +26,9 @@ def spmm_sum(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, num_nodes: i
     return out.index_add_(0, dst, msgs)
 
 
-def spmm_sum_chunked(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-                     num_nodes: int, edge_weight: Optional[torch.Tensor] = None,
-                     chunk: int = SPMM_CHUNK) -> torch.Tensor:
-    """out[v] = sum_{(u->v)} w_e * h[u], scattered chunk by chunk."""
+def _scatter_chunked(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                     num_nodes: int, edge_weight: Optional[torch.Tensor],
+                     chunk: int) -> torch.Tensor:
     out = torch.zeros((num_nodes, h.shape[1]), dtype=h.dtype, device=h.device)
     for s in range(0, src.shape[0], chunk):
         msgs = h.index_select(0, src[s:s + chunk])
@@ -37,6 +36,37 @@ def spmm_sum_chunked(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
             msgs = msgs * edge_weight[s:s + chunk, None]
         out.index_add_(0, dst[s:s + chunk], msgs)
     return out
+
+
+class ChunkedSpmm(torch.autograd.Function):
+    """The chunked sum with the transposed sum as its backward (d_h = A^T g,
+    chunk by chunk), so that no chunk's (chunk, D) messages are kept for
+    the backward: autograd of ``index_add_`` would keep every chunk's,
+    ~4 GB each at products' 2^22-edge chunks of 256 f32 values."""
+
+    @staticmethod
+    def forward(ctx, h, src, dst, num_nodes: int, edge_weight, chunk: int):
+        ctx.save_for_backward(src, dst, edge_weight)
+        ctx.n_rows, ctx.chunk = h.shape[0], chunk
+        return _scatter_chunked(h, src, dst, num_nodes, edge_weight, chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None, None
+        src, dst, edge_weight = ctx.saved_tensors
+        return (_scatter_chunked(g.contiguous(), dst, src, ctx.n_rows, edge_weight, ctx.chunk),
+                None, None, None, None, None)
+
+
+def spmm_sum_chunked(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                     num_nodes: int, edge_weight: Optional[torch.Tensor] = None,
+                     chunk: int = SPMM_CHUNK) -> torch.Tensor:
+    """out[v] = sum_{(u->v)} w_e * h[u], scattered chunk by chunk; the
+    gradient reaches ``h`` (not the fixed ``edge_weight``)."""
+    if edge_weight is not None and edge_weight.requires_grad:
+        raise ValueError("spmm_sum_chunked takes fixed edge weights (no gradient)")
+    return ChunkedSpmm.apply(h, src, dst, num_nodes, edge_weight, chunk)
 
 
 def spmm_mean(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,

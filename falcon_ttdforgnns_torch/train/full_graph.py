@@ -3,7 +3,8 @@
 recipe ``gcn_gat_partition.py``).
 
 Every step materialises all node embeddings through the TT lookup (on the
-card ``TTLookup``: ``tt_fwd`` forward, ``tt_grads`` backward), optionally
+card ``TTLookup``: ``tt_fwd`` forward, ``tt_grads`` backward), or the dense
+table's rows under ``--no-tt``, optionally
 appends the masked label one-hots (the label trick, built on the device
 from an (N,) mask), runs the GNN over the whole COO graph, and takes one
 AdamW step over every parameter, the TT cores included, with the
@@ -29,7 +30,7 @@ from torch import nn
 from ..graph.csr import NodeDataset
 from ..models.gat import GAT
 from ..models.gcn import GCN
-from ..nn.tt_embedding import TTEmbeddingBag
+from ..models.sage import make_embed_layer
 from ..ops.spmm_blocked import BlockedSpmm, build_blocked_spmm, default_blocked_tiling
 from ..utils import resolve_device
 from .optim import adam_init, adam_update
@@ -66,7 +67,7 @@ class FullGraphModel(nn.Module):
     def __init__(self, model_type: str, num_nodes: int, in_dim: int, hidden_dim: int,
                  num_classes: int, num_layers: int = 3, num_heads: int = 3,
                  dropout: float = 0.5, use_linear: bool = False, use_labels: bool = False,
-                 tt_ranks: Sequence[int] = (16, 16),
+                 use_tt: bool = True, tt_ranks: Sequence[int] = (16, 16),
                  p_shapes: Optional[Sequence[int]] = None,
                  q_shapes: Optional[Sequence[int]] = None,
                  weight_dist: str = "approx-normal", precomputed_cores=None,
@@ -75,8 +76,10 @@ class FullGraphModel(nn.Module):
         if model_type not in ("gcn", "gat"):
             raise ValueError(f"model_type must be gcn or gat, got {model_type!r}")
         self.model_type, self.num_nodes, self.use_labels = model_type, num_nodes, use_labels
-        self.embed = TTEmbeddingBag(num_nodes, in_dim, tt_ranks, p_shapes, q_shapes,
-                                    weight_dist, precomputed_cores=precomputed_cores)
+        self.embed = make_embed_layer(num_nodes, in_dim, use_tt, tt_ranks, p_shapes,
+                                      q_shapes, weight_dist,
+                                      precomputed_cores=precomputed_cores,
+                                      generator=generator)
         gin = in_dim + (num_classes if use_labels else 0)
         if model_type == "gcn":
             self.gnn = GCN(gin, hidden_dim, num_classes, num_layers, dropout, use_linear,
@@ -139,16 +142,14 @@ class FullGraphTrainer:
         if cfg.spmm == "blocked" and cfg.model != "gcn":
             raise ValueError("--spmm blocked serves GCN; GAT attention is per-step-"
                              "weighted (static tilings cannot carry the softmax weights)")
-        if not cfg.use_tt:
-            raise NotImplementedError("--no-tt dense embeddings are not ported yet "
-                                      "(ROADMAP A3)")
         self.ds, self.cfg, self.logger = dataset, cfg, logger
         self.device = resolve_device(device)
         n = dataset.num_nodes
         self.model = FullGraphModel(
             cfg.model, n, dataset.feat_dim, cfg.hidden_dim, dataset.num_classes,
             cfg.num_layers, cfg.num_heads, cfg.dropout, cfg.use_linear, cfg.use_labels,
-            cfg.tt_ranks, cfg.p_shapes, cfg.q_shapes, cfg.weight_dist, precomputed_cores,
+            cfg.use_tt, cfg.tt_ranks, cfg.p_shapes, cfg.q_shapes, cfg.weight_dist,
+            precomputed_cores,
             generator=torch.Generator().manual_seed(cfg.seed)).to(self.device)
 
         src, dst = dataset.graph.to_coo()
@@ -227,6 +228,12 @@ class FullGraphTrainer:
         return {f"{s}_acc": float((pred[i] == lab[i]).mean())
                 for s, i in [("train", self.ds.train_idx), ("val", self.ds.val_idx),
                              ("test", self.ds.test_idx)]}
+
+    def checkpoint_state(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """(variables, opt_state) as ``save_checkpoint`` takes them: the
+        model's ``state_dict`` and the AdamW state (the trainer's own
+        tensors)."""
+        return {"model": self.model.state_dict()}, {"adam": vars(self.opt_state)}
 
     def fit(self, epochs: Optional[int] = None) -> Dict[str, Any]:
         cfg = self.cfg

@@ -38,6 +38,24 @@ Two step bodies, as in the JAX trainer:
   cores ``--tt-optimizer`` (one Adam for all when it is ``adam``) and the
   cache rows rowwise adagrad, every update times the plateau scale.
 
+``--full-neighbor`` (``trainer.py:728-762, 1001-1030``) trains on the
+exact neighbourhoods: each step runs the full-graph forward over every
+edge (the lookup over all N ids, then one ``index_add_`` SpMM a layer) in
+f32 with autograd, takes the loss on the batch's seeds, and updates as the
+routed body does; the cores take routed Adam even under ``--sparse``, since
+the fused update needs the sampled ids, as in JAX.  ``--no-tt`` (or
+``--emb-name dense``) trains the dense (N, D) table with the dense params'
+Adam, and ``--access-counts`` (without TT) counts its rows' accesses in the
+step; the host loader counts under ``--access-counts`` as under the cache,
+and :meth:`access_count_stats` reads either.
+
+:meth:`save` and :meth:`restore` carry the whole state through a
+checkpoint: the model's ``state_dict`` (the cache's rows and metadata, the
+access counts), every optimizer's state, the plateau, the step, and what
+carries across epochs (the SR store's generator, the host loader's
+generator and counts), so that a restore at an epoch boundary continues as
+the uninterrupted run would.
+
 The hot-row cache (``--use-cached --cache-size K``, ``trainer.py:1032-1050``)
 turns the fused body off, as JAX's ``_want_fused_sparse`` does.  Epoch 0
 warms up: nothing hits, and the accesses are counted by the host loader
@@ -63,13 +81,15 @@ from ..graph.device_sampler import (build_neighbor_table, device_sample_block,
                                     device_sample_block_table)
 from ..graph.sampler import NeighborLoader
 from ..models.sage import SAGE, collect_level_ids
+from ..nn.tt_embedding import AccessCountingEmbedding
 from ..ops.spmm_blocked import (build_window_tiles, chunk_tiles_host,
                                 default_blocked_tiling, spmm_sum_blocked_dev)
 from ..ops.spmm_tiled import auto_tile_edges, build_spmm_tiles_uniform, spmm_sum_tiled_uniform
 from ..ops.tt_kernels import (grouped_order, tt_fused_adagrad, tt_fused_adam,
                               tt_fused_sgd, tt_fwd, tt_fwd_sr)
 from ..utils import resolve_device
-from ..utils.metrics import throughput
+from ..utils.metrics import access_percentages, throughput
+from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
 from .optim import (ADAGRAD_EPS, ADAM_B1, ADAM_B2, ADAM_EPS, ROWWISE_ADAGRAD_EPS,
                     TT_OPTIMIZERS, adam_init, adam_update, auto_plateau_patience,
                     bias_corrections, cache_opt_init, cache_update, core_update,
@@ -141,9 +161,6 @@ class TrainConfig:
 def _check_supported(cfg: TrainConfig) -> None:
     missing = [
         (cfg.dist or cfg.node_shard, "--dist/--node-shard (ROADMAP A8)"),
-        (not cfg.use_sample, "--full-neighbor training (ROADMAP A2)"),
-        (cfg.access_counts, "--access-counts (ROADMAP A3)"),
-        (not cfg.use_tt, "--no-tt dense embeddings (ROADMAP A3)"),
         (cfg.eval_sampled, "--eval-sampled (ROADMAP A9)"),
     ]
     for unsupported, what in missing:
@@ -258,33 +275,41 @@ class SageTrainer:
         self._indptr_dev = self._indices_dev = self._table_dev = None
         if cfg.mode == "puregpu":
             self._put_graph_on_device()
-        _warn_inert_flags(cfg, logger.warning if logger
-                          else (lambda m: print(m, file=sys.stderr)))
+        warn = logger.warning if logger else (lambda m: print(m, file=sys.stderr))
+        _warn_inert_flags(cfg, warn)
         bf16_tower = cfg.bf16 or cfg.bf16_tower
         # params are drawn on the CPU from a seeded generator, then moved
         self.model = SAGE(
             num_nodes=dataset.num_nodes, in_dim=dataset.feat_dim,
             hidden_dim=cfg.hidden_dim, num_classes=dataset.num_classes,
-            num_layers=cfg.num_layers, dropout=cfg.dropout, tt_ranks=cfg.tt_ranks,
-            p_shapes=cfg.p_shapes, q_shapes=cfg.q_shapes,
+            num_layers=cfg.num_layers, dropout=cfg.dropout, use_tt=cfg.use_tt,
+            tt_ranks=cfg.tt_ranks, p_shapes=cfg.p_shapes, q_shapes=cfg.q_shapes,
             weight_dist=cfg.weight_dist, cache_size=cfg.cache_size,
+            access_counts=cfg.access_counts,
             precomputed_cores=precomputed_cores, batch_count=cfg.batch_count,
             generator=torch.Generator().manual_seed(cfg.seed),
-            bf16=bf16_tower, mean_acc_f32=cfg.bf16_mean_f32,
+            # --full-neighbor aggregates over true degrees: f32, as in JAX
+            bf16=bf16_tower and cfg.use_sample, mean_acc_f32=cfg.bf16_mean_f32,
             bf16_f32_head=cfg.bf16_f32_head, bf16_f32_first=cfg.bf16_f32_first,
             # in-step sampling: the host loader never runs, so the step counts
             device_freq=cfg.mode == "puregpu" and cfg.cache_size > 0).to(self.device)
-        self.shapes = self.model.embed.shapes
+        self.shapes = self.model.embed.shapes if cfg.use_tt else None
         self.patience = auto_plateau_patience(cfg.plateau_patience, bf16_tower)
         if bf16_tower and cfg.plateau_patience < 0 and logger:
             logger.info("bf16 tower: reduce-on-plateau auto-disabled (its ratchet "
                         "reads bf16 loss noise as a plateau); pass "
                         "--plateau-patience to force it on")
-        # a cache turns the fused update off (JAX _want_fused_sparse)
-        self.fused_sparse = cfg.sparse and cfg.cache_size == 0
-        self.cores = list(self.model.embed.cores)
+        # a cache, the dense table or --full-neighbor turns the fused update
+        # off (JAX _want_fused_sparse and its use_sample condition)
+        fusable = cfg.sparse and cfg.use_tt and cfg.cache_size == 0
+        self.fused_sparse = fusable and cfg.use_sample
+        if fusable and not cfg.use_sample:
+            warn("--full-neighbor: the fused --sparse update needs sampled ids, so the "
+                 "TT cores take the routed optimizer")
+        self.cores = list(self.model.embed.cores) if cfg.use_tt else []
+        # the dense params, the --no-tt table among them
         dense = [p for n, p in self.model.named_parameters()
-                 if not n.startswith("embed.")]
+                 if not n.startswith(("embed.tt_core_", "embed.cache_weight"))]
         # routed Adam: the dense params, plus the cores when neither a fused
         # update nor another routed core optimizer takes them
         self.routed_cores = not self.fused_sparse and cfg.tt_optimizer != "adam"
@@ -305,10 +330,11 @@ class SageTrainer:
         self.h_dtype = torch.bfloat16 if cfg.bf16 or cfg.bf16_kernel else torch.float32
         self.sr_gen = torch.Generator(device=self.device)
         self.sr_gen.manual_seed(cfg.seed + 0x5EED)
-        # the host counts feed only the cache's populate
+        # the host counts feed the cache's populate and access_count_stats
         self.loader = NeighborLoader(dataset.graph, dataset.train_idx,
                                      dataset.labels, cfg.fanouts, cfg.batch_size,
-                                     seed=cfg.seed, track_freq=cfg.cache_size > 0,
+                                     seed=cfg.seed,
+                                     track_freq=cfg.cache_size > 0 or cfg.access_counts,
                                      num_workers=cfg.num_workers)
         self.dropout_gen = torch.Generator(device=self.device)
         self.dropout_gen.manual_seed(cfg.seed + 1000)
@@ -380,42 +406,66 @@ class SageTrainer:
         """The one step body of both modes, on device tensors."""
         cfg = self.cfg
         labels = labels.long()
-        if self.fused_sparse:
-            all_ids, _, _ = collect_level_ids(seeds, layers)
-            all_ids = all_ids.to(torch.int32)
-            order = grouped_order(all_ids)  # one sort a step, for tt_fwd and tt_grads
-            cores = [c.detach() for c in self.cores]
-            with torch.no_grad():
-                if self.h_dtype == torch.bfloat16 and cfg.bf16_sr:
-                    h_all = tt_fwd_sr(self.shapes, cores, all_ids, self._sr_seed(),
-                                      order=order)
-                else:
-                    h_all = tt_fwd(self.shapes, cores, all_ids, self.h_dtype, order=order)
-            h_all.requires_grad_(True)
-            logits = self.model.forward_from_embeddings(
-                h_all, seeds, layers, train=True, generator=self.dropout_gen)
-            loss = F.cross_entropy(logits, labels)
-            d_h, *grads = torch.autograd.grad(loss, [h_all, *self.opt_params])
-        else:
+        if not self.fused_sparse:
             logits = self.model(seeds, layers, train=True, generator=self.dropout_gen)
-            loss = F.cross_entropy(logits, labels)
-            routed = self.cores if self.routed_cores else []
-            cache = [] if self.cache_weight is None else [self.cache_weight]
-            grads = torch.autograd.grad(loss, [*self.opt_params, *routed, *cache])
-            n, m = len(self.opt_params), len(self.opt_params) + len(routed)
-            grads, core_grads, cache_grads = grads[:n], grads[n:m], grads[m:]
+            return self._routed_update(logits, labels)
+        all_ids, _, _ = collect_level_ids(seeds, layers)
+        all_ids = all_ids.to(torch.int32)
+        order = grouped_order(all_ids)  # one sort a step, for tt_fwd and tt_grads
+        cores = [c.detach() for c in self.cores]
+        with torch.no_grad():
+            if self.h_dtype == torch.bfloat16 and cfg.bf16_sr:
+                h_all = tt_fwd_sr(self.shapes, cores, all_ids, self._sr_seed(),
+                                  order=order)
+            else:
+                h_all = tt_fwd(self.shapes, cores, all_ids, self.h_dtype, order=order)
+        h_all.requires_grad_(True)
+        logits = self.model.forward_from_embeddings(
+            h_all, seeds, layers, train=True, generator=self.dropout_gen)
+        loss = F.cross_entropy(logits, labels)
+        d_h, *grads = torch.autograd.grad(loss, [h_all, *self.opt_params])
         scale = self._plateau_scale(loss)
         adam_update(self.opt_params, grads, self.opt_state, cfg.lr, scale,
                     cfg.weight_decay)
-        if self.fused_sparse:
-            self._fused_core_update(cores, all_ids, d_h.contiguous(), scale, order)
-        elif self.routed_cores:
+        self._fused_core_update(cores, all_ids, d_h.contiguous(), scale, order)
+        acc = (logits.detach().argmax(-1) == labels).float().mean()
+        return loss.detach(), acc
+
+    def _routed_update(self, logits: torch.Tensor,
+                       labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The routed body's update from the step's logits (JAX
+        ``trainer.py:573-596``): autograd to every trained tensor, Adam on
+        the dense params (the cores too when they take Adam), the routed
+        core optimizer, the cache group; all times the plateau scale."""
+        cfg = self.cfg
+        loss = F.cross_entropy(logits, labels)
+        routed = self.cores if self.routed_cores else []
+        cache = [] if self.cache_weight is None else [self.cache_weight]
+        grads = torch.autograd.grad(loss, [*self.opt_params, *routed, *cache])
+        n, m = len(self.opt_params), len(self.opt_params) + len(routed)
+        grads, core_grads, cache_grads = grads[:n], grads[n:m], grads[m:]
+        scale = self._plateau_scale(loss)
+        adam_update(self.opt_params, grads, self.opt_state, cfg.lr, scale,
+                    cfg.weight_decay)
+        if self.routed_cores:
             core_update(self.cores, core_grads, self.tt_acc, cfg.tt_optimizer,
                         cfg.lr, scale)
         if self.cache_weight is not None:
             cache_update(self.cache_weight, cache_grads[0], self.cache_opt, scale)
         acc = (logits.detach().argmax(-1) == labels).float().mean()
         return loss.detach(), acc
+
+    def full_neighbor_step(self, seeds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One ``--full-neighbor`` step (JAX ``_build_full_neighbor_step``):
+        the train-mode full-graph forward over every edge, the loss on the
+        rows of ``seeds`` (a device tensor; their labels are gathered on the
+        device), and the routed update."""
+        src, dst, deg, labels, *_ = self._eval_graph()
+        logits = self.model.forward_full_graph(src, dst, deg, train=True,
+                                               chunk=self.cfg.edge_chunk,
+                                               generator=self.dropout_gen)
+        return self._routed_update(logits.index_select(0, seeds),
+                                   labels.index_select(0, seeds))
 
     def _sr_seed(self) -> torch.Tensor:
         """The SR store's seed for this step, drawn on the device (no host
@@ -447,6 +497,8 @@ class SageTrainer:
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         cfg = self.cfg
         self.dropout_gen.manual_seed(cfg.seed + 1000 + epoch)
+        if not cfg.use_sample:
+            return self._train_epoch_full_neighbor(epoch)
         if cfg.mode == "puregpu":
             return self._train_epoch_device(epoch)
         meter = _EpochMeter(self, epoch)
@@ -486,6 +538,22 @@ class SageTrainer:
             self.step += S
             meter.record(torch.stack(losses).mean(), torch.stack(accs).mean(), per_group,
                          log_now=(g + 1) % max(1, cfg.log_every // S) == 0)
+        return meter.summary()
+
+    def _train_epoch_full_neighbor(self, epoch: int) -> Dict[str, float]:
+        """``--full-neighbor`` (JAX ``_train_epoch_full_neighbor``): the
+        epoch's order of the train ids, ``default_rng(seed + 31 * epoch)``,
+        cut into ``max(1, len // batch_size)`` batches, each wrapped to full
+        size around the order, one :meth:`full_neighbor_step` each."""
+        cfg = self.cfg
+        B = cfg.batch_size
+        order = np.random.default_rng(cfg.seed + 31 * epoch).permutation(self.ds.train_idx)
+        meter = _EpochMeter(self, epoch)
+        for b in range(max(1, len(order) // B)):
+            pick = _wrap_full(order[b * B:(b + 1) * B], order, B)
+            loss, acc = self.full_neighbor_step(self._tensor(pick.astype(np.int64)))
+            self.step += 1
+            meter.record(loss, acc, B, log_now=(b + 1) % cfg.log_every == 0)
         return meter.summary()
 
     # ------------------------------------------------------------------
@@ -593,6 +661,82 @@ class SageTrainer:
         # JAX's cache_populate_apply: the rows and the id table, in place
         self.model.embed.cache_populate(freq)
         reset_cache_opt_state(self.cache_opt)
+
+    def access_count_stats(self) -> Optional[Dict[str, Any]]:
+        """Per-row access counts and their skew (JAX ``trainer.py:1370-1386``):
+        the model's counts under ``--access-counts`` without TT, else the
+        host loader's (``--access-counts`` or the cache), else None."""
+        if isinstance(self.model.embed, AccessCountingEmbedding):
+            counts = self.model.embed.counts.cpu().numpy()
+        elif self.loader.freq is not None:
+            counts = self.loader.freq
+        else:
+            return None
+        return {"counts": counts, "percentages": access_percentages(counts)}
+
+    # ------------------------------------------------------------------
+    def checkpoint_state(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """(variables, opt_state) as :func:`save_checkpoint` takes them: the
+        model's ``state_dict`` and what carries across epochs (the SR store's
+        generator, the host loader's generator and counts), then every
+        optimizer's state.  Tensors are the trainer's own, not copies."""
+        bg = self.loader.rng.bit_generator
+        loader = {"bit_generator": bg.state,
+                  "children_spawned": bg.seed_seq.n_children_spawned}
+        if self.loader.freq is not None:
+            loader["freq"] = torch.from_numpy(self.loader.freq)
+        variables = {"model": self.model.state_dict(),
+                     "sr_gen": self.sr_gen.get_state(), "loader": loader}
+        opt_state = {"adam": vars(self.opt_state),
+                     "tt_opt": None if self.tt_opt is None else vars(self.tt_opt),
+                     "tt_acc": self.tt_acc,
+                     "cache_acc": None if self.cache_opt is None else self.cache_opt.acc,
+                     "plateau": vars(self.plateau)}
+        return variables, opt_state
+
+    def save(self, ckpt_dir: str, extra: Optional[Dict[str, Any]] = None) -> str:
+        """Write the full training state to ``ckpt_dir/step_{step}.pt``."""
+        return save_checkpoint(ckpt_dir, self.step, *self.checkpoint_state(),
+                               extra={"step": self.step, **(extra or {})})
+
+    @torch.no_grad()
+    def restore(self, path: Optional[str] = None, ckpt_dir: Optional[str] = None) -> None:
+        """Restore the state :meth:`save` wrote (the latest checkpoint of
+        ``ckpt_dir``, default ``./checkpoints``, without ``path``), copying
+        each tensor into the trainer's own."""
+        if path is None:
+            path = latest_checkpoint(ckpt_dir or "./checkpoints")
+            if path is None:
+                raise FileNotFoundError("no checkpoint found")
+        variables, opt_state = self.checkpoint_state()
+        state = restore_checkpoint(path, {"variables": variables, "opt_state": opt_state})
+        saved_vars, saved_opt = state["variables"], state["opt_state"]
+        self.model.load_state_dict(saved_vars["model"], strict=True)
+        self.sr_gen.set_state(saved_vars["sr_gen"])
+        loader = saved_vars["loader"]
+        seq = self.loader.rng.bit_generator.seed_seq
+        bg = type(self.loader.rng.bit_generator)(np.random.SeedSequence(
+            seq.entropy, spawn_key=seq.spawn_key, pool_size=seq.pool_size,
+            n_children_spawned=loader["children_spawned"]))
+        bg.state = loader["bit_generator"]
+        self.loader.rng = np.random.Generator(bg)
+        if self.loader.freq is not None:
+            self.loader.freq[:] = loader["freq"].numpy()
+
+        def copy(dst, src):
+            if (dst is None) != (src is None):
+                raise ValueError(f"checkpoint {path} holds another optimizer configuration")
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+            elif isinstance(dst, (list, tuple)):
+                for d, s_ in zip(dst, src, strict=True):
+                    copy(d, s_)
+            elif isinstance(dst, dict):
+                for k in dst:
+                    copy(dst[k], src[k])
+
+        copy(opt_state, saved_opt)
+        self.step = int(state["extra"].get("step", 0))
 
     def fit(self, epochs: Optional[int] = None) -> Dict[str, Any]:
         cfg = self.cfg

@@ -1,5 +1,5 @@
 """Readings of test_three_certified_bf16_steps_track_jax's statistic over
-trainer seeds and both host samplers (ROADMAP queue C).
+trainer seeds and both host samplers.
 
     python tests/bf16_share_readings.py [--seeds 8]
 
@@ -10,6 +10,14 @@ initial variables, on the test's tiny graph.  Prints one JSON line a run:
 the largest relative loss difference, the largest parameter difference in
 units of lr, and the parameter with the largest share of elements more
 than 0.1 lr apart, with that share.  Runs on the CPU, a few seconds a run.
+
+Readings with the port's bf16 fan-out mean rounding its partial sums as
+the JAX package's does (ROADMAP C1, closed), seeds 0-7 on both samplers:
+no element of any parameter more than 0.1 lr apart in all 16 runs; the
+largest difference 0.031 lr (native, seed 2); losses within 1.34e-4
+relative (numpy, seed 0).  Before that fix the worst share read 1.9-11.6%
+(numpy) and 0.4-10.6% (native), the largest difference up to 4.0 lr and
+the losses up to 5.8e-4 apart.
 """
 
 import argparse

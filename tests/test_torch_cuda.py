@@ -517,11 +517,120 @@ def test_sparse_step_launches_its_kernels(cuda, kw, launched):
 
 
 def test_bf16_mean_is_f32_accumulated_on_card(cuda):
-    """On the card, as on the CPU (tests/test_torch_sage.py), the bf16 mean
-    equals mean(dtype=float32) cast back bit for bit: --bf16-mean-f32
-    changes nothing in the port."""
+    """On the card, as on the CPU (tests/test_torch_sage.py), PyTorch's bf16
+    mean equals mean(dtype=float32) cast back bit for bit: the reference's
+    --bf16-mean-f32 mean.  The tower's bf16 mean is the kernel below, which
+    differs from it."""
+    from falcon_ttdforgnns_torch.ops.tower import fanout_mean_bf16
     x = torch.randn(1024, 10, 15, 100, device=cuda).to(torch.bfloat16)
     assert torch.equal(x.mean(dim=2), x.mean(dim=2, dtype=torch.float32).to(torch.bfloat16))
+    assert not torch.equal(fanout_mean_bf16(x), x.mean(dim=2))
+
+
+@pytest.mark.parametrize("shape", [(1024, 1, 5, 100), (1024, 5, 10, 100), (512, 50, 15, 100),
+                                   (1024, 5, 10, 256), (64, 3, 1, 7), (33, 4, 15, 9)])
+@pytest.mark.parametrize("scale", [1.0, 3e4])
+def test_fanout_mean_kernel_bit_identical(cuda, shape, scale):
+    """fanout_mean_bf16 and its backward against their plain versions (the
+    JAX package's bf16 mean, tests/test_torch_tower.py) on the card, bit for
+    bit: the flagship's level shapes, an odd d (one value a thread), f = 1,
+    and large values (every rounding of the partial sums shows)."""
+    from falcon_ttdforgnns_torch.ops import tower
+    gen = torch.Generator(device=cuda).manual_seed(shape[2])
+    x = (torch.randn(shape, generator=gen, device=cuda) * scale).to(torch.bfloat16)
+    g = (torch.randn(shape[:2] + shape[3:], generator=gen, device=cuda) * scale).to(
+        torch.bfloat16)
+    tower.reset_launch_counts()
+    xr = x.clone().requires_grad_(True)
+    out = tower.fanout_mean_bf16(xr)
+    out.backward(g)
+    assert torch.equal(out.view(torch.int16),
+                       tower.fanout_mean_bf16_plain(x).view(torch.int16))
+    assert torch.equal(xr.grad.view(torch.int16),
+                       tower.fanout_mean_bf16_bwd_plain(g, shape[2]).view(torch.int16))
+    assert tower.launch_counts() == {"fanout_mean_bf16": 1, "fanout_mean_bf16[bwd]": 1}
+    # a misaligned view takes the one-value-a-thread path, with the same bits
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    odd = flat[1:].view(shape).copy_(x)
+    assert torch.equal(tower.fanout_mean_bf16_fwd(odd), out)
+
+
+def tiny_trainers(**kw):
+    kw = dict(dropout=0.0, lr=0.003, **kw)
+    return tiny_trainer(**kw), tiny_trainer(device="cpu", **kw)
+
+
+def hold_step_params(gpu, cpu):
+    """The full-graph check's margins: every parameter within 3e-3 lr but
+    for at most 0.1% of its elements, none past 0.05 lr."""
+    for (name, a), b in zip(gpu.model.named_parameters(), cpu.model.parameters()):
+        off = (a.detach().cpu() - b.detach()).abs()
+        assert float((off > 3 * 1e-3 * 0.003).float().mean()) <= 1e-3, name
+        assert float(off.max()) <= 0.05 * 0.003, name
+
+
+@pytest.mark.parametrize("kw", [dict(use_tt=False), dict(use_tt=False, access_counts=True)],
+                         ids=["no-tt", "access-counts"])
+def test_no_tt_steps_on_card_match_cpu(cuda, kw):
+    """--no-tt SAGE, 3 sampled steps from the same init on the card and on
+    the CPU (routed Adam over the dense table): losses within 1e-4, the
+    parameters at hold_step_params' margins, the counts equal."""
+    gpu, cpu = tiny_trainers(**kw)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    tt_kernels.reset_launch_counts()
+    for _, b in zip(range(3), cpu.loader):
+        lg, _ = gpu.train_step(b.seeds, b.layers, b.labels)
+        lc, _ = cpu.train_step(b.seeds, b.layers, b.labels)
+        assert float(lg) == pytest.approx(float(lc), rel=1e-4)
+    assert not any(tt_kernels.launch_counts().values())
+    hold_step_params(gpu, cpu)
+    if kw.get("access_counts"):
+        assert torch.equal(gpu.model.embed.counts.cpu(), cpu.model.embed.counts)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(use_tt=False)], ids=["tt", "no-tt"])
+def test_full_neighbor_steps_on_card_match_cpu(cuda, kw):
+    """--full-neighbor, 3 steps on the same seeds on the card and on the
+    CPU: the TT lookup over every id (tt_fwd once a step, tt_grads once in
+    its backward), losses within 1e-4, parameters at hold_step_params'
+    margins."""
+    gpu, cpu = tiny_trainers(use_sample=False, sparse=True, **kw)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    tt_kernels.reset_launch_counts()
+    for step in range(3):
+        seeds = torch.arange(step * 64, (step + 1) * 64)
+        lg, _ = gpu.full_neighbor_step(seeds.to(cuda))
+        lc, _ = cpu.full_neighbor_step(seeds)
+        assert float(lg) == pytest.approx(float(lc), rel=1e-4)
+    counts = tt_kernels.launch_counts()
+    want = {"tt_fwd": 3, "tt_grads": 3} if kw.get("use_tt", True) else {}
+    assert {k: v for k, v in counts.items() if v} == want
+    hold_step_params(gpu, cpu)
+
+
+@pytest.mark.parametrize("kw", [dict(mode="puregpu", sparse=True, bf16=True, steps_per_call=2),
+                                dict(cache_size=64)], ids=["puregpu-fused", "cache"])
+def test_checkpoint_restores_bit_identically_on_card(cuda, tmp_path, kw):
+    """An epoch (the cache's populated after it), save, a fresh trainer on
+    the card restored: every tensor of the state equal bit for bit, and the
+    restored trainer's next epoch runs."""
+    tr = tiny_trainer(**kw)
+    tr.train_epoch(0)
+    tr.maybe_populate_cache()
+    path = tr.save(str(tmp_path))
+    fresh = tiny_trainer(**kw)
+    fresh.restore(path)
+    for (name, a), b in zip(tr.model.state_dict().items(), fresh.model.state_dict().values()):
+        assert b.is_cuda and torch.equal(a, b), name
+    ours, theirs = tr.checkpoint_state()[1], fresh.checkpoint_state()[1]
+    for key in ("m", "v"):
+        for a, b in zip(ours["adam"][key], theirs["adam"][key]):
+            assert torch.equal(a, b)
+    if tr.tt_opt is not None:
+        assert int(fresh.tt_opt.count) == int(tr.tt_opt.count)
+        assert all(torch.equal(a, b) for a, b in zip(tr.tt_opt.v, fresh.tt_opt.v))
+    assert torch.equal(tr.sr_gen.get_state(), fresh.sr_gen.get_state())
+    assert np.isfinite(fresh.train_epoch(1)["loss"])
 
 
 # ------------------------------------------------------- SpMM kernels (B7-B9)

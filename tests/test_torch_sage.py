@@ -190,8 +190,11 @@ def test_bf16_forwards_match_flax(flags):
 
 def test_bf16_mean_already_accumulates_in_f32():
     """PyTorch's bf16 mean equals mean(dtype=float32) cast back, bit for
-    bit, so --bf16-mean-f32 changes nothing in the port (the JAX package's
-    bf16 mean rounds partial sums; the port does not emulate that)."""
+    bit: it is the JAX package's --bf16-mean-f32 mean, not its bf16 one,
+    which rounds every partial sum.  So the port's bf16 tower means through
+    fanout_mean_bf16 (tests/test_torch_tower.py), which differs from it."""
+    from falcon_ttdforgnns_torch.ops.tower import fanout_mean_bf16
     x = torch.randn(64, 7, 15, 256, generator=torch.Generator().manual_seed(0))
     x = x.to(torch.bfloat16)
     assert torch.equal(x.mean(dim=2), x.mean(dim=2, dtype=torch.float32).to(torch.bfloat16))
+    assert not torch.equal(fanout_mean_bf16(x), x.mean(dim=2))

@@ -46,18 +46,10 @@ def datasets():
     return hard_synthetic_dataset(**kw), jax_hard(**kw)
 
 
-@pytest.fixture
-def numpy_sampler(monkeypatch):
-    """Batches from the port's numpy sampler path (equal to the JAX
-    package's numpy path, tests/test_torch_graph.py) rather than the native
-    one the trainer takes by default."""
-    monkeypatch.setattr(sampler, "_native", None)
-
-
 def run_both(datasets, sparse, **kw):
     ds, jds = datasets
-    jtr = JaxTrainer(jds, JaxConfig(sparse=sparse, steps_per_call=1, **TINY, **kw))
-    tr = SageTrainer(ds, TrainConfig(sparse=sparse, **TINY, **kw), device="cpu")
+    jtr = JaxTrainer(jds, JaxConfig(sparse=sparse, steps_per_call=1, **{**TINY, **kw}))
+    tr = SageTrainer(ds, TrainConfig(sparse=sparse, **{**TINY, **kw}), device="cpu")
     load_jax_variables(tr, jax.tree.map(np.asarray, jtr.variables))
     losses = []
     for _, b in zip(range(3), tr.loader):
@@ -157,19 +149,23 @@ def test_three_bf16_sparse_steps_match_jax(datasets):
     assert tr.h_dtype == torch.bfloat16 and tr.patience == 0
 
 
-def test_three_certified_bf16_steps_track_jax(datasets, numpy_sampler):
-    """--bf16 --sparse, the certified configuration.  The JAX bf16 mean
-    rounds its partial sums in bf16; PyTorch's accumulates in f32 (the port
-    does not emulate that).  The gradients then differ at bf16 precision,
-    and Adam's sign-like early steps turn a near-zero gradient element of
-    the other sign into a difference of up to 2 lr per step.  So: losses
-    within 2e-3, and at most 5% of each parameter's elements more than
-    0.1 lr apart after 3 steps.  The share depends on the batches (0.4-11.6%
-    over seeds 0-7 on either sampler, ROADMAP queue C), and 5% holds on the
-    numpy sampler's batches at seed 0, the ones it was set on."""
-    jtr, tr, losses = run_both(datasets, sparse=True, bf16=True)
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("host_sampler", ["numpy", "native"])
+def test_three_certified_bf16_steps_track_jax(datasets, monkeypatch, host_sampler, seed):
+    """--bf16 --sparse, the certified configuration, on either host
+    sampler's batches and four trainer seeds.  The port's bf16 fan-out
+    mean now rounds its partial sums as JAX's does (ROADMAP C1), so what
+    is left is the bf16 products of the convs, rounded in another order.
+    Readings over seeds 0-7 on both samplers (tests/bf16_share_readings.py,
+    CPU): the largest difference 0.031 lr, no element past 0.1 lr, losses
+    within 1.34e-4 relative.  Bounds, about 3x those: every element within
+    0.1 lr (so none more than 0.1 lr apart, where 5% were allowed and
+    3.5-11.6% read before the fix) and losses within 5e-4."""
+    if host_sampler == "numpy":  # the port's numpy path, equal to the JAX package's
+        monkeypatch.setattr(sampler, "_native", None)
+    jtr, tr, losses = run_both(datasets, sparse=True, bf16=True, seed=seed)
     for ours, theirs in losses:
-        assert ours == pytest.approx(theirs, rel=2e-3)
+        assert ours == pytest.approx(theirs, rel=5e-4)
     params = jax.tree.map(np.asarray, jtr.variables["params"])
     ours = dict(tr.model.named_parameters())
     pairs = [(ours[f"embed.tt_core_{k}"], params["embed"][f"tt_core_{k}"])
@@ -179,8 +175,8 @@ def test_three_certified_bf16_steps_track_jax(datasets, numpy_sampler):
                   (ours[f"convs.{i}.lin_neigh.weight"], params[f"conv_{i}"]["neigh"]["kernel"].T)]
     for a, b in pairs:
         off = np.abs(a.detach().numpy() - b)
-        assert off.max() <= 3 * 2 * LR + 1e-6
-        assert (off > 0.1 * LR).mean() <= 0.05
+        assert off.max() <= 0.1 * LR
+        assert (off > 0.1 * LR).mean() == 0.0
 
 
 @pytest.mark.parametrize("kw", [dict(bf16=True), dict(bf16_tower=True)])
@@ -224,8 +220,8 @@ def test_fit_runs_and_reports(datasets):
     assert 0.0 <= res["best"]["test_acc"] <= 1.0
 
 
-@pytest.mark.parametrize("kw", [dict(use_tt=False), dict(eval_sampled=True),
-                                dict(use_sample=False)])
+@pytest.mark.parametrize("kw", [dict(dist=True), dict(eval_sampled=True),
+                                dict(node_shard=True)])
 def test_unported_options_raise(datasets, kw):
     with pytest.raises(NotImplementedError):
         SageTrainer(datasets[0], TrainConfig(**{**TINY, **kw}), device="cpu")

@@ -104,12 +104,35 @@
    memory to its output's;
 9. prints the per-kernel JSON line, then the device line.
 
+Since the single-card tools and the other models: after the flagship's
+bf16 evaluate() (whose bf16 means of layers 2 and 3 run the port's
+segment_mean_bf16, counted), its --eval-sampled accuracies beside the
+full ones and its --store-emb table (into a temporary directory, rows
+held to materialize_features'); after the untimed checks of step 4,
+segment_mean_bf16 bit for bit against its plain version on a slice of
+the products graph around its highest in-degree row plus rows without
+in-edges, then timed over the whole graph beside the chunked index_add_
+it replaced; tt_fwd, tt_fwd_sr and tt_grads at every rank pair of the
+tuner's box (RANK_GRID) against their plain versions, and at 256, 256 on
+937,984 zipf ids, timed against their bounds; the profiler harness'
+TTEmbeddingBenchmark; before those, RGAT on a tiny typed graph against
+the CPU and, in a process of its own started with the untimed checks of
+step 4 and read before the timed phases, `python -m
+falcon_ttdforgnns_torch.cli --autotune --tune-budget 2 --eval-sampled
+--store-emb --plot --profile` at a tenth of arxiv (its traces must name
+tt_fwd's and tt_grads' kernels).  After final-p's phases: the README's autotuning
+preset at products through cli.run (--tune-budget TUNE_BUDGET, cut from
+20), RGAT at MAG240M's R-GAT widths on hard-ogbn-arxiv, and MolGNN at
+OGB's mol defaults on synthetic molecule batches, with each of gin/gcn x
+five poolings against the CPU at a tiny size.
+
 The steps run in the order 1, 2, 5, step 6's flagship phases (the main
 path and --sampler table), 6 (e) and (f), then 4, 6 (g) and the
 flagship's checkpoint beside the orderings, 6 (a)-(c) with final-p's
-checkpoint, 3 in a process of its own (after the main path's profile, see
-main()), the rest of 6, 7, 8 and 9: no host-timed phase but the
-checkpoint's save and restore runs beside the orderings.
+checkpoint, the tools and models above, 3 in a process of its own (after
+the main path's profile, see main()), the rest of 6, 7, 8 and 9: no
+host-timed phase but the checkpoint's save and restore runs beside the
+orderings.
 
 Exits non-zero, before printing any result, without a CUDA device or
 outside a checkout of the repository; any failed check raises.
@@ -188,7 +211,10 @@ REPLACES = {  # the TPU kernel each one ports (its def line)
     # no TPU kernel: the XLA bf16 mean of the reference's conv tower, which
     # these kernels reproduce bit for bit
     "fanout_mean_bf16": "falcon_ttdforgnns_tpu/models/sage.py:185",
-    "fanout_mean_bf16[bwd]": "falcon_ttdforgnns_tpu/models/sage.py:185"}
+    "fanout_mean_bf16[bwd]": "falcon_ttdforgnns_tpu/models/sage.py:185",
+    # no TPU kernel either: the XLA segment sum of the reference's bf16
+    # full-graph mean (spmm_mean), which this kernel reproduces bit for bit
+    "segment_mean_bf16": "falcon_ttdforgnns_tpu/ops/segment.py:69"}
 ARXIV = dict(p_shapes=(50, 60, 60), q_shapes=(8, 4, 4), tt_ranks=(16, 16))  # the arxiv preset
 
 
@@ -809,8 +835,8 @@ def train_steps(trainer, batches, label):
 
 def kernel_modules():
     """The wrapper modules, each with its KERNELS and launch counts."""
-    from falcon_ttdforgnns_torch.ops import spmm_blocked, spmm_tiled, tower, tt_kernels
-    return tt_kernels, spmm_tiled, spmm_blocked, tower
+    from falcon_ttdforgnns_torch.ops import segment, spmm_blocked, spmm_tiled, tower, tt_kernels
+    return tt_kernels, spmm_tiled, spmm_blocked, tower, segment
 
 
 def reset_counts() -> None:
@@ -871,10 +897,12 @@ def checked_evaluate(trainer, label, must_launch=("tt_fwd",)):
     accs = trainer.evaluate()
     first = (time.perf_counter() - t0) * 1e3
     counts = launched()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer.evaluate()
     log(f"  {label}: {first:.0f} ms (first call, includes moving the edge list to "
-        f"the card), second call {(time.perf_counter() - t0) * 1e3:.0f} ms, {accs}, "
+        f"the card), second call {(time.perf_counter() - t0) * 1e3:.0f} ms (peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB), {accs}, "
         f"launches {counts}")
     missing = [k for k in must_launch if not counts.get(k)]
     if not all(0.0 <= a <= 1.0 for a in accs.values()) or missing:
@@ -1512,8 +1540,11 @@ def main_path_phase(ds, config, K, dev, counts) -> list:
     del mixed
     chunk_sweep(K, trainer.shapes, main_ids, dev)
     del main_ids
-    log("evaluate() under bf16: full-graph propagation over every node and edge")
-    checked_evaluate(trainer, "bf16 evaluate")
+    log("evaluate() under bf16: full-graph propagation over every node and edge (the bf16 "
+        "means of layers 2 and 3 through segment_mean_bf16)")
+    full_accs, counts["bf16 evaluate"] = checked_evaluate(
+        trainer, "bf16 evaluate", must_launch=("tt_fwd", "segment_mean_bf16"))
+    flagship_tools_phase(trainer, ds, full_accs, dev, counts)
     del trainer
     torch.cuda.empty_cache()
     return other_b
@@ -2218,6 +2249,512 @@ def checkpoint_phase(ds, config, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------- the single-card tools, the other models
+RANK_GRID = [(2, 2), (23, 23), (7, 131), (256, 2), (2, 256), (256, 256)]  # the tuner's box
+TUNE_BUDGET = 3      # the autotuning preset's --tune-budget, cut from its 20
+RGAT_STEPS = 3       # full-graph Adam steps of RGAT at MAG240M's widths
+MOL_STEPS = 3        # timed Adam steps of MolGNN at each batch size
+PRODUCTS_PQ = ((125, 140, 140), (5, 5, 4))
+
+
+def bf16_within(name: str, got, want, tol: float = 1e-5) -> float:
+    """A bf16 store at a high rank against its plain version: each value
+    within one bf16 step of the plain value plus tol of the largest, what
+    two f32 rows within tol of their largest (TOL["tt_fwd"]) can round to
+    (an output that cancels far below the largest may round more than one
+    step apart).  Returns the largest absolute error."""
+    import torch
+    g, w = got.float(), want.float()
+    step = torch.where(w == 0, torch.zeros_like(w),
+                       torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8))
+    diff = (g - w).abs()
+    bad = int((diff > step + tol * float(w.abs().max())).sum())
+    equal = float((got.view(torch.int16) == want.view(torch.int16)).float().mean())
+    log(f"  {name}: {equal:.6f} of bf16 values bit-identical, {bad} past one step and "
+        f"{tol:.0e} of the largest {'ok' if bad == 0 else 'FAILED'}")
+    if bad:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return float(diff.max())
+
+
+def rank_phase(dev, n_ids: int = 4096) -> None:
+    """C3: tt_fwd (f32, bf16), tt_fwd_sr and tt_grads (f32 and bf16 d_out)
+    against their plain versions at every rank pair of RANK_GRID at the
+    products p/q on n_ids ids (a hot id across chunks), with the launch
+    configuration each takes; then tt_fwd and tt_grads at 256, 256 on
+    937,984 zipf ids (the main path's count): ms, launches, bounds."""
+    import torch
+    from falcon_ttdforgnns_torch.ops import tt_init
+    from falcon_ttdforgnns_torch.ops import tt_kernels as K
+    from falcon_ttdforgnns_torch.ops.tt_shapes import make_tt_shapes
+    seed = torch.tensor(4242, dtype=torch.int32, device=dev)
+    for ranks in RANK_GRID:
+        shapes = make_tt_shapes(2_449_029, 100, ranks, *PRODUCTS_PQ)
+        cores = [torch.tensor(c, device=dev) for c in tt_init.init_tt_cores(shapes, "normal", 0)]
+        rng = np.random.default_rng(sum(ranks))
+        ids = rng.integers(0, shapes.num_embeddings, n_ids).astype(np.int32)
+        ids[::7] = ids[0]
+        ids = torch.tensor(ids, device=dev)
+        g = torch.randn(n_ids, 100, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+        reset_counts()
+        label = f"ranks {ranks}"
+        check(f"tt_fwd {label}", [("out", K.tt_fwd(shapes, cores, ids),
+                                   K.tt_fwd_plain(shapes, cores, ids), "tt_fwd")])
+        bf16_within(f"tt_fwd[bf16] {label}", K.tt_fwd(shapes, cores, ids, torch.bfloat16),
+                    K.tt_fwd_plain(shapes, cores, ids, torch.bfloat16))
+        bf16_within(f"tt_fwd_sr {label}", K.tt_fwd_sr(shapes, cores, ids, seed),
+                    K.tt_fwd_sr_plain(shapes, cores, ids, seed))
+        for d_out in (g, g.to(torch.bfloat16)):
+            check(f"tt_grads {label} ({str(d_out.dtype)[6:]} d_out)",
+                  [(f"core {k}", a, b, "tt_grads") for k, (a, b) in enumerate(zip(
+                      K.tt_grads(shapes, cores, ids, d_out),
+                      K.tt_grads_plain(shapes, cores, ids, d_out)))])
+        counts = launched()
+        if any(counts.get(k) != 1 for k in ("tt_fwd", "tt_fwd[bf16]", "tt_fwd_sr", "tt_grads",
+                                            "tt_grads[bf16]")):
+            raise AssertionError(f"{label}: launches {counts}")
+        fr = shapes.full_ranks
+        fwd_warp = 4 * (((100 + 3) & ~3) + ((5 * fr[1] + 25 * fr[2] + 3) & ~3)
+                        + ((25 * fr[2] + 3) & ~3)) + 8 * 32
+        grads_warp = 4 * (2 * (5 * fr[1] + 25 * fr[2]) + 100) + 8 * 32
+        warps = [next(w for w in (8, 4, 2, 1) if w * b <= 232448) for b in (fwd_warp, grads_warp)]
+        log(f"  {label}: shared memory a warp {fwd_warp} B (tt_fwd), {grads_warp} B "
+            f"(tt_grads): {warps[0]} and {warps[1]} warps a CTA")
+        del cores
+    # 256, 256 at the main path's size
+    shapes = make_tt_shapes(2_449_029, 100, (256, 256), *PRODUCTS_PQ)
+    cores = [torch.tensor(c, device=dev) for c in tt_init.init_tt_cores(shapes, "normal", 0)]
+    rng = np.random.default_rng(0)
+    perm = rng.permutation(shapes.num_embeddings)
+    ids = torch.tensor(perm[(rng.zipf(ZIPF_A, IDS_PER_STEP) - 1) % shapes.num_embeddings]
+                       .astype(np.int32), device=dev)
+    d_out = torch.randn((IDS_PER_STEP, 100), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2))
+    walk, fwd_walk = walk_counts(K, shapes, ids)
+    fb, fby = fwd_bound(shapes, fwd_walk, 4)
+    gb, gby = grads_bound(shapes, walk, 4)
+    order = K.grouped_order(ids)
+    reset_counts()
+    fwd_ms = cuda_ms(lambda: K.tt_fwd(shapes, cores, ids), 5)
+    fwd_o_ms = cuda_ms(lambda: K.tt_fwd(shapes, cores, ids, order=order), 5)
+    grads_ms = cuda_ms(lambda: K.tt_grads(shapes, cores, ids, d_out, order=order), 5)
+    counts = launched()
+    log(f"  ranks (256, 256) on {IDS_PER_STEP} zipf ids ({walk['distinct']} distinct, "
+        f"{walk['prefix_runs']} prefix runs): tt_fwd {fwd_ms:.4f} ms ({fwd_o_ms:.4f} with the "
+        f"sort given), bound {fb:.4f} ms by {fby}; tt_grads (f32 d_out, the sort given) "
+        f"{grads_ms:.4f} ms, bound {gb:.4f} ms by {gby}; launches {counts}; the plain "
+        f"versions not measured at this size (their gathered core rows would take 1.2 TB)")
+
+
+def segment_kernel_check(ds, dev) -> dict:
+    """C2: segment_mean_bf16 (the port's own kernel: the reference's bf16
+    full-graph mean) against its plain version bit for bit on a slice of
+    the products graph's rows around its highest in-degree row, plus 64
+    rows without in-edges, at D = 100 and 256, values N(0, 1) and
+    N(0, 3e4^2); then timed over the whole graph (evaluate's shape) at
+    D = 256 and 100, beside its plain version and, as another function,
+    the chunked index_add_ that evaluate ran before (f32 accumulation).
+    Returns its JSON results (D = 256)."""
+    import torch
+    from falcon_ttdforgnns_torch.ops import segment
+    g, n = ds.graph, ds.num_nodes
+    indptr = torch.tensor(g.indptr.astype(np.int64), device=dev)
+    src = torch.tensor(g.indices.astype(np.int64), device=dev)
+    deg_np = np.diff(g.indptr)
+    deg = torch.tensor(deg_np.astype(np.float32), device=dev)
+    top = int(deg_np.argmax())
+    lo, hi = max(0, top - 20000), min(n, top + 20000)
+    e0, e1 = int(g.indptr[lo]), int(g.indptr[hi])
+    s_ptr = torch.cat([indptr[lo:hi + 1] - e0,
+                       torch.full((64,), e1 - e0, dtype=torch.int64, device=dev)])
+    s_src, s_deg = src[e0:e1], torch.cat([deg[lo:hi], torch.zeros(64, device=dev)])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for d in (100, 256):
+        for scale in (1.0, 3e4):
+            h = (torch.randn(n, d, generator=gen, device=dev) * scale).to(torch.bfloat16)
+            got = segment.segment_mean_bf16(h, s_src, s_ptr, s_deg)
+            want = segment.segment_mean_bf16_plain(h, s_src, s_ptr, s_deg)
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError(f"segment_mean_bf16 at D={d}, scale {scale}: not "
+                                     f"bit-identical to its plain version")
+    log(f"  segment_mean_bf16 bit-identical to its plain version on rows {lo}..{hi - 1} "
+        f"(in-degree up to {int(deg_np[top])} at row {top}) and 64 rows without in-edges, "
+        f"D = 100 and 256, values N(0, 1) and N(0, 3e4^2)")
+    dst = torch.repeat_interleave(torch.arange(n, device=dev), indptr[1:] - indptr[:-1])
+    res = {}
+    for d in (100, 256):
+        h = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
+        reset_counts()
+        ms = cuda_ms(lambda: segment.segment_mean_bf16(h, src, indptr, deg), 5)
+        launches = launched().get("segment_mean_bf16", 0)
+        t0 = time.perf_counter()
+        plain = segment.segment_mean_bf16_plain(h, src, indptr, deg)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = segment.segment_mean_bf16(h, src, indptr, deg)
+        if not torch.equal(got.view(torch.int16), plain.view(torch.int16)):
+            raise AssertionError(f"segment_mean_bf16 over the whole graph at D={d}: not "
+                                 f"bit-identical to its plain version")
+        del plain, got
+        add_ms = cuda_ms(lambda: segment.spmm_sum_chunked(h, src, dst, n), 3)
+        E = src.numel()
+        bound, by = bound_ms(2 * 2 * n * d + 8 * E + 8 * (n + 1) + 4 * n, E * d + n * d)
+        log(f"  segment_mean_bf16 over all {n} rows and {E} edges, D = {d}: {ms:.3f} ms "
+            f"({launches} launches in the timing), plain version {plain_ms:.1f} ms (one call, "
+            f"host clock), bound {bound:.4f} ms by {by}; the chunked index_add_ sum of the "
+            f"same h, another function (f32 accumulation, no division) {add_ms:.3f} ms")
+        if d == 256:
+            res["segment_mean_bf16"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                            bound_ms=bound, bound_by=by, library_ms=None,
+                                            index_add_ms=add_ms)
+    return res
+
+
+def flagship_tools_phase(trainer, ds, full_accs, dev, counts) -> None:
+    """On the trained flagship: --eval-sampled (its accuracies beside the
+    full evaluate()'s, seconds, launches), then --store-emb (the table
+    materialised through tt_fwd in chunks of 65,536 into a temporary
+    directory: MB, seconds, 4,096 sampled rows against
+    materialize_features), then removed."""
+    import shutil
+    import tempfile
+    import torch
+    from falcon_ttdforgnns_torch.cli import store_embedding
+    reset_counts()
+    t0 = time.perf_counter()
+    accs = trainer.evaluate_sampled()
+    sec = time.perf_counter() - t0
+    counts["eval sampled"] = launched()
+    log(f"  --eval-sampled: {accs} in {sec:.1f} s (full evaluate(): {full_accs}); launches "
+        f"{counts['eval sampled']}")
+    missing = [k for k in ("tt_fwd", "fanout_mean_bf16") if not counts["eval sampled"].get(k)]
+    if missing or not all(0.0 <= a <= 1.0 for a in accs.values()):
+        raise AssertionError(f"--eval-sampled gave {accs}, {missing} never launched")
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "emb_approx-normal_tt16_part0.npy")
+        t0 = time.perf_counter()
+        emb = store_embedding(trainer, ds.num_nodes, path)
+        sec = time.perf_counter() - t0
+        ids = np.random.default_rng(9).integers(0, ds.num_nodes, 4096)
+        rows = np.load(path, mmap_mode="r")[ids]
+        with torch.no_grad():
+            want = trainer.model.materialize_features(torch.tensor(
+                ids, dtype=torch.int32, device=dev)).float().cpu().numpy()
+        same = np.array_equal(rows, want) and emb.shape == (ds.num_nodes, 100)
+        log(f"  --store-emb: {emb.shape} f32, {os.path.getsize(path) / 1e6:.1f} MB in "
+            f"{sec:.1f} s; 4,096 sampled rows {'equal' if same else 'NOT equal'} to "
+            f"materialize_features'")
+        if not same:
+            raise AssertionError("--store-emb's rows differ from materialize_features'")
+    finally:
+        shutil.rmtree(tmp)
+
+
+def start_cli_flags(here: str, extra=()) -> tuple:
+    """python -m falcon_ttdforgnns_torch.cli with every flag this slice
+    ported, in a process of its own (its torch.profiler sessions are that
+    process's): --autotune --tune-budget 2 of one epoch each on
+    hard-ogbn-arxiv at a tenth of its nodes (the arxiv preset's TT shapes;
+    a short run, so that it is done before the timed phases, which it would
+    share the card with), each candidate --profile'd, evaluated by
+    --eval-sampled, its table stored by --store-emb and its access CDF drawn
+    by --plot (--access-counts).  Writes into a temporary directory;
+    finish_cli_flags reads and removes it.  `extra` flags go last (a
+    rehearsal on the CPU)."""
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    argv = [sys.executable, "-m", "falcon_ttdforgnns_torch.cli", "--dataset", "hard-ogbn-arxiv",
+            "--synthetic-scale", "0.1", "--epochs", "1", "--autotune", "--tune-budget", "2", "--eval-sampled", "--store-emb",
+            "--plot", "--access-counts", "--profile", "--profile-dir", f"{tmp}/prof",
+            "--ckpt-dir", f"{tmp}/ck", "--log-dir", f"{tmp}/logs", "--log-every", "1000",
+            *extra]
+    proc = subprocess.Popen(argv, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    CHILDREN.append(proc)
+    return proc, tmp, time.perf_counter()
+
+
+def finish_cli_flags(job) -> None:
+    """Wait for start_cli_flags' process; raise unless it ended 0 with its
+    JSON line, wrote its tables, and a trace names tt_fwd's and tt_grads'
+    kernels."""
+    import glob
+    import shutil
+    proc, tmp, t0 = job
+    try:
+        out, err = proc.communicate(timeout=900)
+        sec = time.perf_counter() - t0
+        for line in err.splitlines():
+            if any(k in line for k in ("autotune:", "val_acc", "stored", "access CDF", "Error",
+                                       "error")):
+                log(f"  | {line[-300:]}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI's flags run failed ({proc.returncode}):\n{err[-3000:]}")
+        best = json.loads(out.strip().splitlines()[-1])
+        traces = sorted(glob.glob(f"{tmp}/prof/*.json"))
+        named = [all(k in open(t).read() for k in ("tt_fwd_kernel", "tt_grads_kernel"))
+                 for t in traces]
+        embs = glob.glob(f"{tmp}/ck/emb_*.npy")
+        plot = os.path.exists(f"{tmp}/logs/access_cdf.png")
+        log(f"  python -m falcon_ttdforgnns_torch.cli --autotune --tune-budget 2 --eval-sampled "
+            f"--store-emb --plot --profile on hard-ogbn-arxiv at 0.1 scale: rc 0 in {sec:.0f} s, "
+            f"{best}; "
+            f"{len(traces)} traces ({[os.path.getsize(t) // 10**6 for t in traces]} MB), "
+            f"naming tt_fwd_kernel and tt_grads_kernel: {named}; tables {len(embs)}; access "
+            f"CDF {'written' if plot else 'not written (no matplotlib on this machine)'}")
+        if set(best) != {"best_ranks", "objective"} or not traces or not named[0] or not embs:
+            raise AssertionError("the CLI's flags run left no result, trace or table")
+    finally:
+        shutil.rmtree(tmp)
+
+
+class _Log:
+    """A logger for cli.run and its trainers that prints through log()."""
+
+    def info(self, msg):
+        log(f"  | {msg}")
+
+    warning = error = info
+
+
+def autotune_phase(ds, dev) -> None:
+    """The README's autotuning preset (scripts/run_presets.sh: --model sage
+    --use-tt --autotune --batch 1024 --fan-out 5,10,15, mixed mode, f32,
+    routed Adam) through cli.run on the products graph already built, its
+    --tune-budget cut from 20 to TUNE_BUDGET: each candidate's ranks,
+    samples/s and peak device memory, then the best."""
+    import contextlib
+    import io
+    import tempfile
+    from falcon_ttdforgnns_torch import cli
+    from falcon_ttdforgnns_torch.utils.config import apply_preset, parse_args
+    with tempfile.TemporaryDirectory() as tmp:
+        args = apply_preset(parse_args([
+            "--model", "sage", "--dataset", "hard-ogbn-products", "--use-tt", "--autotune",
+            "--tune-budget", str(TUNE_BUDGET), "--batch", "1024", "--fan-out", "5,10,15",
+            "--log-dir", tmp, "--ckpt-dir", tmp, "--log-every", "1000", "--device", dev.type]))
+        log(f"  the autotuning preset at products, --tune-budget {TUNE_BUDGET} (cut from the "
+            f"preset's 20)")
+        out = io.StringIO()  # the CLI prints its result as a JSON line of its own
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.run(args, ds, _Log())
+        *lines, result = out.getvalue().strip().splitlines()
+    for line in lines:
+        log(line)
+    log(f"  best {json.loads(result)} after {TUNE_BUDGET} candidates in "
+        f"{time.perf_counter() - t0:.0f} s")
+
+
+def rgat_phase(dev) -> None:
+    """RGAT at the widths of OGB-LSC MAG240M's R-GAT baseline (hidden 1024 =
+    4 heads x 256, 2 layers, dropout 0.5, 5 edge types) on the full-size
+    hard-ogbn-arxiv graph, its edges split into 5 types by a seeded draw,
+    features N(0, 1) at 128 columns, its 40 classes: RGAT_STEPS full-graph
+    Adam steps (the port's optax-semantics Adam, lr 1e-3): finite losses,
+    ms a step, peak device memory."""
+    import torch
+    import torch.nn.functional as F
+    from falcon_ttdforgnns_torch.graph import get_dataset
+    from falcon_ttdforgnns_torch.models.rgat import RGAT
+    from falcon_ttdforgnns_torch.train.optim import adam_init, adam_update
+    ds = get_dataset("hard-ogbn-arxiv", seed=0)
+    n = ds.num_nodes
+    rng = np.random.default_rng(0)
+    src, dst = ds.graph.to_coo()
+    etype = rng.integers(0, 5, len(src))
+    typed = [(torch.tensor(src[etype == t].astype(np.int64), device=dev),
+              torch.tensor(dst[etype == t].astype(np.int64), device=dev)) for t in range(5)]
+    feat = torch.tensor(rng.standard_normal((n, 128), dtype=np.float32), device=dev)
+    labels = torch.tensor(ds.labels.astype(np.int64), device=dev)
+    train = torch.tensor(ds.train_idx, device=dev)
+    model = RGAT(128, 256, ds.num_classes, 5, num_layers=2, num_heads=4, dropout=0.5,
+                 generator=torch.Generator().manual_seed(0)).to(dev)
+    params = list(model.parameters())
+    opt, one = adam_init(params), torch.ones((), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for step in range(RGAT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model(feat, typed, n, train=True, generator=gen)
+        loss = F.cross_entropy(logits.index_select(0, train), labels.index_select(0, train))
+        adam_update(params, torch.autograd.grad(loss, params), opt, 1e-3, one)
+        loss = float(loss.detach())
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(loss):
+            raise AssertionError(f"RGAT step {step}: loss {loss}")
+        log(f"  RGAT step {step}: {times[-1]:.1f} ms, loss {loss:.4f}")
+    log(f"  RGAT 2 x (4 heads x 256), 5 edge types over {n} nodes and {len(src)} edges, "
+        f"{ds.num_classes} classes: {sum(p.numel() for p in params)} parameters, "
+        f"{min(times[1:]):.1f} ms a step after the first, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def small_rgat_check(dev) -> None:
+    """RGAT on a tiny typed graph, 3 Adam steps on the card against the same
+    steps on the CPU, dropout 0: GAT's card-against-CPU margins
+    (small_full_graph_check): losses within 1e-4, parameters within 3e-3
+    lr but for FULL_GRAPH_OUTLIERS of them, none past 6 lr."""
+    import copy
+    import torch
+    import torch.nn.functional as F
+    from falcon_ttdforgnns_torch.models.rgat import RGAT
+    from falcon_ttdforgnns_torch.train.optim import adam_init, adam_update
+    rng = np.random.default_rng(3)
+    n, lr = 400, 3e-3
+    edges = [(rng.integers(0, n, 1500), rng.integers(0, n, 1500)) for _ in range(3)]
+    feat, labels = rng.standard_normal((n, 16), dtype=np.float32), rng.integers(0, 5, n)
+    cpu = RGAT(16, 8, 5, 3, num_layers=2, num_heads=2, dropout=0.0,
+               generator=torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(dev)
+    for model, d in ((gpu, dev), (cpu, torch.device("cpu"))):
+        typed = [(torch.tensor(s, device=d), torch.tensor(t, device=d)) for s, t in edges]
+        x, y = torch.tensor(feat, device=d), torch.tensor(labels, device=d)
+        params = list(model.parameters())
+        opt = adam_init(params)
+        model.losses = []
+        for _ in range(3):
+            loss = F.cross_entropy(model(x, typed, n, train=True), y)
+            adam_update(params, torch.autograd.grad(loss, params), opt, lr,
+                        torch.ones((), device=d))
+            model.losses.append(float(loss.detach()))
+    if not all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(gpu.losses, cpu.losses)):
+        raise AssertionError(f"RGAT losses on the card {gpu.losses} vs the CPU {cpu.losses}")
+    offs = [(a.detach().cpu() - b.detach()).abs()
+            for a, b in zip(gpu.parameters(), cpu.parameters())]
+    err, tol = max(float(o.max()) for o in offs), 3 * 1e-3 * lr
+    share = sum(int((o > tol).sum()) for o in offs) / sum(o.numel() for o in offs)
+    ok = share <= FULL_GRAPH_OUTLIERS and err <= 3 * 2 * lr
+    log(f"  tiny typed graph RGAT: 3 steps, losses card vs CPU ok, max param diff {err:.3e}, "
+        f"share beyond {tol:.1e} {share:.2e} (tol {FULL_GRAPH_OUTLIERS:.0e}) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("RGAT params on the card and on the CPU disagree")
+
+
+ATOM_CARDS = (119, 4, 12, 12, 10, 6, 6, 2, 2)  # OGB's nine atom features
+BOND_CARDS = (5, 6, 2)                           # and its three bond features
+
+
+def mol_batch(rng, graphs: int) -> dict:
+    """`graphs` synthetic molecule-shaped graphs: ~25 atoms (N(25.5, 6)
+    clipped to 8..60), a chain with branches (each atom bonded to the one
+    before it, or 30% of the time to an earlier one) closed by 3 rings, so
+    ~27.5 bonds (ogbg-molhiv's averages: 25.5 atoms, 27.5 bonds), both
+    edge directions; integer atom features within OGB's 9 cardinalities
+    (fed to the atom Dense as values, as the reference stack does) and
+    bond features within (5, 6, 2)."""
+    src, dst, gid, off = [], [], [], 0
+    for g in range(graphs):
+        k = int(np.clip(round(rng.normal(25.5, 6)), 8, 60))
+        par = np.where(rng.random(k - 1) < 0.7, np.arange(k - 1),
+                       (rng.random(k - 1) * np.arange(1, k)).astype(np.int64))
+        a = np.concatenate([np.arange(1, k), np.arange(5, 5 + 3 * 6, 6)[:3] % k])
+        b = np.concatenate([par, (np.arange(5, 5 + 3 * 6, 6)[:3] - 5) % k])
+        src += [a + off, b + off]
+        dst += [b + off, a + off]
+        gid.append(np.full(k, g))
+        off += k
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    bonds = np.stack([rng.integers(0, c, len(src) // 2) for c in BOND_CARDS], 1)
+    x = np.stack([rng.integers(0, c, off) for c in ATOM_CARDS], 1).astype(np.float32)
+    return dict(x=x, src=src, dst=dst, edge_attr=np.concatenate([bonds, bonds]),
+                graph_id=np.concatenate(gid), num_nodes=off, num_graphs=graphs,
+                y=rng.integers(0, 2, (graphs, 1)).astype(np.float32))
+
+
+def mol_args(b, dev):
+    import torch
+    return [torch.tensor(b[k], device=dev) for k in ("x", "src", "dst", "edge_attr",
+                                                     "graph_id")] + [b["num_nodes"],
+                                                                     b["num_graphs"]]
+
+
+def mol_phase(dev) -> None:
+    """MolGNN at OGB's mol defaults (examples/graphproppred/mol/main_pyg.py:
+    gin-virtual, 5 layers, emb 300, dropout 0.5, mean pooling, 1 task) on
+    synthetic molecule batches (mol_batch): ms an Adam step (binary
+    cross-entropy with logits, lr 1e-3) at 32 and 1,024 graphs; then each of
+    gin/gcn x the 5 poolings at a tiny size on the card against the CPU:
+    the eval output within 1e-5 and one train-mode step's gradients within
+    1e-4 (each of its tensor's largest, or 1e-6 of the model's largest)."""
+    import copy
+    import torch
+    import torch.nn.functional as F
+    from falcon_ttdforgnns_torch.models.gin import MolGNN
+    from falcon_ttdforgnns_torch.train.optim import adam_init, adam_update
+    rng = np.random.default_rng(0)
+    for graphs in (32, 1024):
+        model = MolGNN(1, 9, emb_dim=300, num_layers=5, conv_type="gin", virtual_node=True,
+                       pooling="mean", dropout=0.5,
+                       generator=torch.Generator().manual_seed(0)).to(dev)
+        params = list(model.parameters())
+        opt, one = adam_init(params), torch.ones((), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batches = [mol_batch(rng, graphs) for _ in range(MOL_STEPS + 1)]
+        times = []
+        for i, b in enumerate(batches):
+            args, y = mol_args(b, dev), torch.tensor(b["y"], device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = F.binary_cross_entropy_with_logits(model(*args, train=True, generator=gen), y)
+            adam_update(params, torch.autograd.grad(loss, params), opt, 1e-3, one)
+            loss = float(loss.detach())
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not math.isfinite(loss):
+                raise AssertionError(f"MolGNN step {i} at {graphs} graphs: loss {loss}")
+        atoms = np.mean([b["num_nodes"] / graphs for b in batches])
+        bonds = np.mean([len(b["src"]) / 2 / graphs for b in batches])
+        log(f"  MolGNN gin-virtual 5 x 300, {graphs} graphs a batch ({atoms:.1f} atoms, "
+            f"{bonds:.1f} bonds a graph): {min(times[1:]):.2f} ms an Adam step after the first "
+            f"({times[0]:.1f} ms), losses finite")
+    b = mol_batch(np.random.default_rng(1), 6)
+    b["graph_id"][b["graph_id"] == 5] = 4  # graph 5 left empty: a padding graph
+    for conv in ("gin", "gcn"):
+        for pooling in MolGNN.POOLINGS:
+            cpu = MolGNN(2, 9, emb_dim=16, num_layers=2, conv_type=conv, virtual_node=True,
+                         pooling=pooling, dropout=0.0,
+                         generator=torch.Generator().manual_seed(2))
+            gpu = copy.deepcopy(cpu).to(dev)
+            with torch.no_grad():
+                want = cpu(*mol_args(b, "cpu"))
+                got = gpu(*mol_args(b, dev)).cpu()
+            rel = float((got - want).abs().max() / want.abs().max())
+            grads = []
+            for model, d in ((gpu, dev), (cpu, "cpu")):
+                out = model(*mol_args(b, d), train=True)
+                grads.append([g.cpu() for g in torch.autograd.grad(out.square().sum(),
+                                                                   list(model.parameters()))])
+            top = max(float(g.abs().max()) for g in grads[1])
+            gerr = max(float((a - c).abs().max()) / max(float(c.abs().max()), 1e-2 * top)
+                       for a, c in zip(*grads))
+            ok = rel <= 1e-5 and gerr <= 1e-4
+            log(f"  tiny MolGNN {conv}/{pooling}, card vs CPU: output rel {rel:.2e}, "
+                f"gradients rel {gerr:.2e} {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise AssertionError(f"MolGNN {conv}/{pooling} on the card and the CPU disagree")
+
+
+def profiler_phase(dev) -> None:
+    """The profiler harness' TTEmbeddingBenchmark at the products shapes on
+    the main path's count of ids (937,984 uniform draws): check_forward's
+    error, the forward ("gather": tt_fwd sorting its ids; "grouped": given
+    the sort), the forward and backward, and the dense table's gather."""
+    from falcon_ttdforgnns_torch.profiler import TTEmbeddingBenchmark
+    bench = TTEmbeddingBenchmark(batch_size=IDS_PER_STEP, device=dev)
+    fwd = bench.bench_forward()
+    bwd, dense = bench.bench_backward(), bench.bench_dense_reference()
+    log(f"  TTEmbeddingBenchmark at p=125,140,140 q=5,5,4 ranks 16,16 on {IDS_PER_STEP} ids: "
+        f"check_forward max error {fwd['gather'].max_err:.3e}; forward gather "
+        f"{fwd['gather'].forward_ms:.4f} ms, grouped {fwd['grouped'].forward_ms:.4f} ms; "
+        f"fwd+bwd {bwd.forward_ms:.4f} ms; dense gather {dense.forward_ms:.4f} ms")
+
+
 def collect_ids(batch):
     """collect_level_ids of a host batch, on the CPU."""
     import torch
@@ -2312,6 +2849,9 @@ def main() -> int:
     # -1 and -4 at arxiv in a process, beside the untimed checks of step 4
     part_job = start_partition(ds0.graph, 128)
     arxiv_job = start_own_process(here, "arxiv_orderings")
+    log("python -m falcon_ttdforgnns_torch.cli with the slice's flags, started in a process "
+        "of its own beside the untimed checks that follow, and read before the timed ones")
+    cli_job = start_cli_flags(here)
     log("train step, card vs CPU (beside the --partition 128 thread and the arxiv orderings' "
         "process; nothing here is timed):")
     small_step_check(dev)
@@ -2319,9 +2859,22 @@ def main() -> int:
     small_full_graph_check(dev)
     log("(d) the cache's lifecycle, card vs CPU:")
     small_cache_check(dev)
+    log("RGAT against the CPU on a tiny typed graph:")
+    small_rgat_check(dev)
     torch.cuda.empty_cache()
+    log("the CLI's flags (--autotune, --eval-sampled, --store-emb, --plot, --profile):")
+    finish_cli_flags(cli_job)
     log("the bf16 fan-out mean's kernels against their plain versions:")
     tower_res = tower_kernel_check(dev)
+    log("the bf16 full-graph mean's kernel (C2) against its plain version:")
+    tower_res.update(segment_kernel_check(ds, dev))
+    torch.cuda.empty_cache()
+    log("tt_fwd, tt_fwd_sr and tt_grads at every rank of the tuner's box (C3):")
+    rank_phase(dev)
+    torch.cuda.empty_cache()
+    log("the profiler harness (profiler.py):")
+    profiler_phase(dev)
+    torch.cuda.empty_cache()
     log("checkpoint of the puregpu flagship (save and restore seconds beside the partition "
         "thread):")
     checkpoint_phase(ds, config, dev)
@@ -2347,6 +2900,16 @@ def main() -> int:
     del ds128
     log("(c) the puregpu flagship with the cache:")
     puregpu_cache_phase(ds, config, K, dev, counts)
+    torch.cuda.empty_cache()
+    log("the autotuning preset:")
+    autotune_phase(ds, dev)
+    torch.cuda.empty_cache()
+    log("RGAT at MAG240M's R-GAT widths on hard-ogbn-arxiv:")
+    rgat_phase(dev)
+    torch.cuda.empty_cache()
+    log("MolGNN at OGB's mol defaults:")
+    mol_phase(dev)
+    torch.cuda.empty_cache()
     # step 3, in a process of its own, whose profiler sessions (the updates'
     # device times) are its first; the main path's profile is this
     # process's first (in_own_process; PERF.md §7)
@@ -2402,17 +2965,18 @@ def main() -> int:
                "spmm_tiled[bf16]": "kernel phase", "spmm_tile_partials": "kernel phase",
                "spmm_tile_partials[bf16]": "kernel phase",
                "spmm_gather": "full-graph gcn blocked",
-               "fanout_mean_bf16": "main", "fanout_mean_bf16[bwd]": "main"}
+               "fanout_mean_bf16": "main", "fanout_mean_bf16[bwd]": "main",
+               "segment_mean_bf16": "bf16 evaluate"}
     kernels = [{"name": n, "route": "cuda",
                 "source": (TT_SOURCE if n.startswith("tt_") else TOWER_SOURCE
-                           if n.startswith("fanout_") else SPMM_SOURCE),
+                           if n.startswith(("fanout_", "segment_")) else SPMM_SOURCE),
                 "replaces": REPLACES[n], "launches": counts[path_of[n]][n],
                 "launched_by": path_of[n],
                 "max_abs_err": res[n]["max_abs_err"], "ms": res[n]["ms"],
                 "plain_ms": res[n]["plain_ms"], "bound_ms": res[n]["bound_ms"],
                 "bound_by": res[n]["bound_by"], "library_ms": res[n]["library_ms"],
                 **{k: res[n][k] for k in ("device_ms", "library_device_ms", "sort_ms",
-                                          "kernel_ms") if k in res[n]}}
+                                          "kernel_ms", "index_add_ms") if k in res[n]}}
                for m in kernel_modules() for n in m.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,20 +10,30 @@ on CUDA unless ``--device cpu``.
         --spmm blocked --epochs 10
 
 Port of ``falcon_ttdforgnns_tpu/cli.py``; ``--run-one`` takes a single
-train step (GCN/GAT: one epoch, which is one step) and exits.  After
-training, ``--save-pred`` writes ``pred_{model}_{dataset}.npz`` (``pred``,
-``logits``) of the layer-wise inference and ``--save-model`` a checkpoint
-(``extra`` holds the best accuracies), both into ``--ckpt-dir``;
-``--access-counts`` logs the access skew.
+train step (GCN/GAT: one epoch, which is one step) and exits.
+``--profile`` traces each ``fit`` with ``torch.profiler`` into
+``--profile-dir`` (a Chrome trace).  After training, ``--save-pred`` writes
+``pred_{model}_{dataset}.npz`` (``pred``, ``logits``) of the layer-wise
+inference, ``--store-emb`` the TT table as
+``emb_{init}_tt{r}_part{partition}.npy`` and ``--save-model`` a checkpoint
+(``extra`` holds the best accuracies), all into ``--ckpt-dir``;
+``--access-counts`` logs the access skew, and ``--plot`` draws its CDF
+into ``--log-dir`` where matplotlib is installed.  ``--autotune`` searches
+the TT ranks (``utils/tuner.py``): one epoch a candidate, objective the
+inverse of its samples/s, then prints ``{"best_ranks": ..., "objective":
+...}``.  :func:`main` parses the flags, loads and reorders the dataset
+(:func:`load_dataset`) and hands both to :func:`run`.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import time
 
 import numpy as np
+import torch
 
 
 def main(argv=None):
@@ -32,22 +42,15 @@ def main(argv=None):
 
     args = apply_preset(parse_args(argv))
     logger = get_logger("falcon_torch", args.log_dir)
-    for flag in ("multihost", "autotune", "profile", "store_emb", "plot"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not "
-                                      f"ported yet (ROADMAP A7-A9)")
-    if args.emb_name == "dense":
-        args.use_tt = False
-    if args.emb_name == "eff":
-        logger.info("--emb-name eff is the tt lookup here: on the card tt_fwd and "
-                    "tt_grads already take each id prefix's chain once per run of "
-                    "sorted ids (Efficient_TT's dedup); the CPU runs the plain lookup")
+    if args.multihost:
+        raise NotImplementedError("--multihost is not ported yet (ROADMAP A8)")
+    return run(args, load_dataset(args, logger), logger)
 
+
+def load_dataset(args, logger):
+    """``--dataset`` (synthetic at ``--synthetic-scale`` where its files are
+    absent), relabelled by ``--partition``."""
     from .graph import get_dataset, reorder_permutation_cached
-    from .train import FullGraphConfig, FullGraphTrainer, SageTrainer, TrainConfig
-    from .train.checkpoint import save_checkpoint
-    from .utils import metrics as M
-
     t0 = time.time()
     ds = get_dataset(args.dataset, synthetic_scale=args.synthetic_scale,
                      seed=args.seed, official_split=args.official_split)
@@ -61,6 +64,24 @@ def main(argv=None):
     if perm is not None:
         ds = ds.permute(perm)
         logger.info(f"reorder partition={args.partition}: {time.time() - t0:.1f}s")
+    return ds
+
+
+def run(args, ds, logger):
+    """Train on ``ds`` as the flags say (``--n-runs`` seeds, or the
+    ``--autotune`` search), then what the flags ask after each fit.
+    Returns the best accuracies (None for ``--autotune``, whose result is
+    printed)."""
+    from .train import FullGraphConfig, FullGraphTrainer, SageTrainer, TrainConfig
+    from .train.checkpoint import save_checkpoint
+    from .utils import metrics as M
+
+    if args.emb_name == "dense":
+        args.use_tt = False
+    if args.emb_name == "eff":
+        logger.info("--emb-name eff is the tt lookup here: on the card tt_fwd and "
+                    "tt_grads already take each id prefix's chain once per run of "
+                    "sorted ids (Efficient_TT's dedup); the CPU runs the plain lookup")
     precomputed = _maybe_init_cores(args, ds, logger)
 
     def run_once(tt_ranks):
@@ -84,7 +105,7 @@ def main(argv=None):
                 stats = trainer.train_epoch(0)
                 logger.info(f"run-one: {stats}")
                 return stats
-            return after_fit(trainer, trainer.fit())
+            return after_fit(trainer, traced_fit(trainer))
         cfg = TrainConfig(
             batch_size=args.batch, fanouts=tuple(args.fan_out),
             epochs=args.epochs, lr=args.lr, dropout=args.dropout,
@@ -124,7 +145,11 @@ def main(argv=None):
             stats = {"loss": loss, "step_time": time.perf_counter() - t1}
             logger.info(f"run-one: {stats}")
             return stats
-        return after_fit(trainer, trainer.fit())
+        return after_fit(trainer, traced_fit(trainer))
+
+    def traced_fit(trainer):
+        with M.profile_trace(args.profile_dir if args.profile else None):
+            return trainer.fit()
 
     def after_fit(trainer, result):
         logger.info(f"best: {result['best']}")
@@ -135,11 +160,22 @@ def main(argv=None):
             np.savez(os.path.join(args.ckpt_dir, f"pred_{args.model}_{args.dataset}.npz"),
                      pred=logits.argmax(-1), logits=logits)
             logger.info("saved predictions")
-        if args.access_counts and hasattr(trainer, "access_count_stats"):
+        if args.store_emb and args.use_tt:
+            # the final table (gcn_gat_partition.py:341-344), through the lookup
+            path = os.path.join(args.ckpt_dir, f"emb_{args.init}_tt{args.tt_rank[0]}"
+                                               f"_part{args.partition}.npy")
+            store_embedding(trainer, ds.num_nodes, path)
+            logger.info(f"stored embedding table {path}")
+        if (args.access_counts or args.plot) and hasattr(trainer, "access_count_stats"):
             stats = trainer.access_count_stats()
             if stats:
                 logger.info(f"access skew (top-x% of rows -> % of accesses): "
                             f"{stats['percentages']}")
+                if args.plot:
+                    os.makedirs(args.log_dir, exist_ok=True)
+                    path = os.path.join(args.log_dir, "access_cdf.png")
+                    drawn = M.plot_access_cdf(stats["counts"], path)
+                    logger.info(f"access CDF: {path if drawn else 'not drawn (no matplotlib)'}")
         logger.info(f"embed params MB: "
                     f"{M.model_size_mb(trainer.model.embed.parameters()):.2f}")
         if args.save_model:
@@ -148,16 +184,69 @@ def main(argv=None):
             logger.info(f"checkpoint: {path}")
         return result
 
+    if args.autotune:
+        autotune(args, run_once, logger)
+        return None
     best = None
     base_seed = args.seed
-    for run in range(args.n_runs):
-        args.seed = base_seed + run
+    for i in range(args.n_runs):
+        args.seed = base_seed + i
         result = run_once(args.tt_rank)
         if "best" in result and (best is None
                                  or result["best"]["test_acc"] > best["test_acc"]):
             best = result["best"]
     if best:
         print(json.dumps({"best": best}))
+    return best
+
+
+@torch.no_grad()
+def store_embedding(trainer, num_nodes: int, path: str, chunk: int = 65536) -> np.ndarray:
+    """The (num_nodes, D) f32 feature table, materialised ``chunk`` ids at
+    a time through the model's lookup (``tt_fwd`` on the card), saved to
+    ``path`` (``np.save``) and returned."""
+    dev = next(trainer.model.parameters()).device
+    emb = np.concatenate([trainer.model.materialize_features(torch.arange(
+        s, min(s + chunk, num_nodes), dtype=torch.int32, device=dev)).float().cpu().numpy()
+        for s in range(0, num_nodes, chunk)])
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.save(path, emb)
+    return emb
+
+
+def autotune(args, run_once, logger):
+    """The TT-rank search (``tuning_SAGE.py:213-240``): ``--tune-budget``
+    candidates of one epoch each, the objective 1 / samples_per_s of the
+    epoch, each trainer freed before the next (its device memory and the
+    kernels' kept argument sets), so peak memory does not grow from
+    candidate to candidate.  Logs each candidate's ranks, samples/s and
+    peak device memory, and prints the best as one JSON line."""
+    from .ops import tt_kernels
+    from .utils import metrics as M
+    from .utils.tuner import tune_tt_rank
+
+    def tput_of(ranks):
+        epochs, args.epochs = args.epochs, 1
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            res = run_once(ranks)
+        finally:
+            args.epochs = epochs
+            gc.collect()
+            tt_kernels.clear_launch_args()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+        hist = res["history"][-1] if isinstance(res, dict) and "history" in res else res
+        tput = hist.get("samples_per_s", hist.get("edges_per_s", 1.0))
+        peak = {d: m["peak_bytes_mb"] for d, m in M.device_memory_stats().items()}
+        logger.info(f"autotune: ranks {tuple(ranks)}: {tput:.1f} samples/s, "
+                    f"peak device memory MB {peak}")
+        return tput
+
+    tr = tune_tt_rank(tput_of, budget=args.tune_budget, seed=args.seed)
+    print(json.dumps({"best_ranks": tr.best_params, "objective": tr.best_value}))
+    return tr
 
 
 def trainer_step(trainer) -> int:

@@ -39,6 +39,33 @@ in its optax state at
   ``gnn.bns.i.weight``/``bias``, and ``batch_stats["gnn"]["bn_i"]``
   ``mean``/``var`` -> ``gnn.bns.i.running_mean``/``running_var``.
 
+``rgat_state_from_jax`` maps the params of the JAX ``RGAT`` to a
+``state_dict`` of :class:`~falcon_ttdforgnns_torch.models.rgat.RGAT`:
+``layer_i/etype_t`` (a GAT layer's ``fc``, ``attn_l``, ``attn_r``) ->
+``layers.i.convs.t``, ``layer_i/skip`` -> ``layers.i.skip``, ``out`` ->
+``out``.
+
+``mol_gnn_state_from_jax`` maps the variables of the JAX ``MolGNN`` (or of
+a ``GNNNode`` alone, with ``node_only``; ``params`` and ``batch_stats``) to
+a ``state_dict`` of :class:`~falcon_ttdforgnns_torch.models.gin.MolGNN`
+(:class:`~falcon_ttdforgnns_torch.models.gin.GNNNode`):
+
+* ``gnn_node/atom_encoder`` and ``vn_init`` as they are;
+* ``gnn_node/conv_l``: ``BondEncoder_0/bond_i/embedding`` ->
+  ``convs.l.bond.tables.i.weight``; GIN ``eps``, ``Dense_0``/``Dense_1``
+  -> ``lin1``/``lin2``, ``mlp_bn`` -> ``bn``; GCN ``Dense_0`` -> ``lin``,
+  ``root_emb``;
+* ``gnn_node/bn_l`` -> ``bns.l``; ``gnn_node/vn_mlp_l_j``/``vn_bn_l_j`` ->
+  ``vn_lins.(2l + j)``/``vn_bns.(2l + j)``;
+* ``pool``: attention ``Dense_0``/``gate_bn``/``Dense_1`` ->
+  ``lin1``/``bn``/``lin2``; Set2Set ``lstm_i`` -> ``cells.i``, the gates'
+  kernels stacked in the order i, f, g, o into ``weight_ih`` (``ii`` ...)
+  and ``weight_hh`` (``hi`` ...), the hidden Dense's biases into
+  ``bias_hh``, ``bias_ih`` zero;
+* ``graph_pred`` as it is; every BatchNorm's ``scale``/``bias`` ->
+  ``weight``/``bias`` and its ``batch_stats`` ``mean``/``var`` ->
+  ``running_mean``/``running_var``.
+
 Every flax Dense kernel (in, out) becomes an ``nn.Linear`` weight (out, in).
 """
 
@@ -162,3 +189,87 @@ def full_graph_state_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unsupported full-graph param {name!r}")
     return out
 
+
+
+def rgat_state_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in params.items():
+        if name == "out":
+            _linear(out, "out", sub)
+            continue
+        i = int(name.split("_")[1])  # layer_i
+        for part, p in sub.items():
+            if part == "skip":
+                _linear(out, f"layers.{i}.skip", p)
+            else:  # etype_t: one GAT layer without its residual branch
+                pre = f"layers.{i}.convs.{int(part.split('_')[1])}"
+                _linear(out, f"{pre}.fc", p["fc"])
+                out[f"{pre}.attn_l"] = _t(p["attn_l"])
+                out[f"{pre}.attn_r"] = _t(p["attn_r"])
+    return out
+
+
+def _batch_norm(out, name: str, params: Dict, stats: Dict) -> None:
+    out[f"{name}.weight"] = _t(params["scale"])
+    out[f"{name}.bias"] = _t(params["bias"])
+    out[f"{name}.running_mean"] = _t(stats["mean"])
+    out[f"{name}.running_var"] = _t(stats["var"])
+
+
+def _lstm_cell(out, name: str, p: Dict) -> None:
+    gates = ("i", "f", "g", "o")
+    out[f"{name}.weight_ih"] = _t(np.concatenate([np.asarray(p[f"i{g}"]["kernel"]).T
+                                                  for g in gates]))
+    out[f"{name}.weight_hh"] = _t(np.concatenate([np.asarray(p[f"h{g}"]["kernel"]).T
+                                                  for g in gates]))
+    out[f"{name}.bias_hh"] = _t(np.concatenate([p[f"h{g}"]["bias"] for g in gates]))
+    out[f"{name}.bias_ih"] = torch.zeros(out[f"{name}.bias_hh"].shape)
+
+
+def _gnn_node_state(out, pre: str, params: Dict, stats: Dict) -> None:
+    for name, sub in params.items():
+        if name == "atom_encoder":
+            _linear(out, f"{pre}atom_encoder", sub)
+        elif name == "vn_init":
+            out[f"{pre}vn_init"] = _t(sub)
+        elif name.startswith("conv_"):
+            c = f"{pre}convs.{int(name.split('_')[1])}"
+            for k, table in sub["BondEncoder_0"].items():
+                out[f"{c}.bond.tables.{int(k.split('_')[1])}.weight"] = _t(table["embedding"])
+            if "eps" in sub:  # GIN
+                out[f"{c}.eps"] = _t(sub["eps"])
+                _linear(out, f"{c}.lin1", sub["Dense_0"])
+                _linear(out, f"{c}.lin2", sub["Dense_1"])
+                _batch_norm(out, f"{c}.bn", sub["mlp_bn"], stats[name]["mlp_bn"])
+            else:  # GCN
+                _linear(out, f"{c}.lin", sub["Dense_0"])
+                out[f"{c}.root_emb"] = _t(sub["root_emb"])
+        elif name.startswith("bn_"):
+            _batch_norm(out, f"{pre}bns.{int(name.split('_')[1])}", sub, stats[name])
+        elif name.startswith(("vn_mlp_", "vn_bn_")):
+            layer, j = (int(v) for v in name.split("_")[-2:])
+            if name.startswith("vn_mlp_"):
+                _linear(out, f"{pre}vn_lins.{2 * layer + j}", sub)
+            else:
+                _batch_norm(out, f"{pre}vn_bns.{2 * layer + j}", sub, stats[name])
+        else:
+            raise ValueError(f"unsupported GNNNode param {name!r}")
+
+
+def mol_gnn_state_from_jax(variables: Dict, node_only: bool = False) -> Dict[str, torch.Tensor]:
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out: Dict[str, torch.Tensor] = {}
+    if node_only:
+        _gnn_node_state(out, "", params, stats)
+        return out
+    _gnn_node_state(out, "gnn_node.", params["gnn_node"], stats.get("gnn_node", {}))
+    _linear(out, "graph_pred", params["graph_pred"])
+    pool = params.get("pool")
+    if pool is not None and "gate_bn" in pool:  # attention
+        _linear(out, "pool.lin1", pool["Dense_0"])
+        _linear(out, "pool.lin2", pool["Dense_1"])
+        _batch_norm(out, "pool.bn", pool["gate_bn"], stats["pool"]["gate_bn"])
+    elif pool is not None:  # set2set
+        for name, cell in pool.items():
+            _lstm_cell(out, f"pool.cells.{int(name.split('_')[1])}", cell)
+    return out

@@ -1,21 +1,24 @@
-// Hopper (sm_90a) kernels of the SAGE conv tower: the bf16 fan-out mean and
-// its backward.  Built by nvcc into a shared library with a plain C
-// interface and loaded through ctypes (falcon_ttdforgnns_torch/ops/
-// _build.py); the Python wrappers live in ops/tower.py next to their plain
+// Hopper (sm_90a) kernels of the bf16 means: the SAGE conv tower's fan-out
+// mean and its backward, and the full-graph mean over each row's in-edges.
+// Built by nvcc into a shared library with a plain C interface and loaded
+// through ctypes (falcon_ttdforgnns_torch/ops/_build.py); the Python
+// wrappers live in ops/tower.py and ops/segment.py next to their plain
 // versions.
 //
-// No TPU kernel is replaced: the JAX package takes this mean as an XLA
-// reduction, jnp.mean(axis=2, dtype=bfloat16) in models/sage.py, and XLA
-// sums the f slices left to right, rounding each partial sum to bf16, then
-// divides by f and rounds once more.  PyTorch's bf16 mean accumulates in
-// f32 and rounds once, which differs in most outputs; this kernel gives the
-// reference's bits in one launch where a loop of torch adds would take f
-// launches a level (44 a flagship step over its six means).
+// No TPU kernel is replaced: the JAX package takes these means as XLA
+// reductions, and XLA rounds every partial sum of a bf16 reduction to bf16.
+// PyTorch's bf16 mean and index_add_ accumulate in f32 and round once,
+// which differs in about half the outputs; these kernels give the
+// reference's bits in one launch each.
 //
-// fanout_mean_bf16: x (rows, f, d) bf16 -> out (rows, d) bf16,
+// fanout_mean_bf16 (jnp.mean(axis=2, dtype=bfloat16) in models/sage.py):
+//   x (rows, f, d) bf16 -> out (rows, d) bf16,
 //   acc = x[:, 0]; acc = rn_bf16(acc + x[:, j]) for j = 1..f-1 (the sum of
 //   two bf16 values is exact in f32 up to the one rounding, as in XLA's
-//   upcast add); out = rn_bf16(acc / f) with IEEE f32 division.
+//   upcast add); out = rn_bf16(acc / f) with IEEE f32 division; the
+//   sampled tower's XLA reduction sums the f slices left to right, and
+//   a loop of torch adds would take f launches a level (44 a flagship
+//   step over its six means).
 // fanout_mean_bf16_bwd: g (rows, d) bf16 -> dx (rows, f, d) bf16,
 //   dx[:, j] = rn_bf16(g / f), the gradient of sum / f.
 // Bound on H100: bytes (each input read once, each output written once,
@@ -27,6 +30,23 @@
 //   bytes of one slice per j; the f slices of a row lie d apart), else one
 //   thread per value; the thread walks the f slices (summing them forward,
 //   writing them backward); a 1-D grid strides over the pairs.
+//
+// segment_mean_bf16 (ops/segment.py:spmm_mean of the JAX package under
+//   bf16, the full-graph mean of evaluate and layer-wise inference: XLA's
+//   segment_sum adds each row's messages in edge order, a bf16 rounding
+//   after every add, then divides by the in-degree cast to bf16):
+//   h (n_h, d) bf16, src (E,) int64 grouped by destination row, indptr
+//   (N + 1,) int64, deg (N,) f32 -> out (N, d) bf16,
+//   acc = +0; acc = rn_bf16(acc + h[src[e]]) for e = indptr[v] ..
+//   indptr[v + 1] - 1; out[v] = rn_bf16(acc / max(rn_bf16(deg[v]), 1)).
+//   It reads the rows of h where the edges point, so no (E, d) messages
+//   exist.  Bound on H100: bytes, h, the output, src, indptr and deg once
+//   each: at ogbn-products (2,449,029 rows, 122,449,596 edges) and d = 256
+//   about 3.5 GB, 1.05 ms at 3.35 TB/s; the gathers read each h row once
+//   per out-edge (63 GB at d = 256), mostly from L2 and HBM.  Design: the
+//   fan-out mean's, one thread per (row, column pair) on a 1-D grid, so
+//   the threads of one row read one gathered h row coalesced (the row's
+//   src[e] a broadcast); each thread walks its row's edges in order.
 
 #include <cstdint>
 
@@ -107,6 +127,44 @@ __global__ void __launch_bounds__(kThreads) fanout_mean_bwd_scalar(
   }
 }
 
+// out (N, d) from h, walking each row's in-edges: a thread per (row, column
+// pair) where d is even, else per value.
+__global__ void __launch_bounds__(kThreads) segment_mean_pairs(
+    const __nv_bfloat162* __restrict__ h, const long long* __restrict__ src,
+    const long long* __restrict__ indptr, const float* __restrict__ deg, long long pairs,
+    int half_d, __nv_bfloat162* __restrict__ out) {
+  for (long long o = (long long)blockIdx.x * kThreads + threadIdx.x; o < pairs;
+       o += (long long)gridDim.x * kThreads) {
+    const long long v = o / half_d;
+    const int c = static_cast<int>(o - v * half_d);
+    const long long hi = indptr[v + 1];
+    float2 acc = make_float2(0.f, 0.f);
+    for (long long e = indptr[v]; e < hi; ++e) {
+      const float2 x = __bfloat1622float2(h[src[e] * half_d + c]);
+      acc.x = round_bf16(acc.x + x.x);
+      acc.y = round_bf16(acc.y + x.y);
+    }
+    const float den = fmaxf(round_bf16(deg[v]), 1.f);
+    out[o] = __floats2bfloat162_rn(acc.x / den, acc.y / den);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) segment_mean_scalar(
+    const __nv_bfloat16* __restrict__ h, const long long* __restrict__ src,
+    const long long* __restrict__ indptr, const float* __restrict__ deg, long long n_out,
+    int d, __nv_bfloat16* __restrict__ out) {
+  for (long long o = (long long)blockIdx.x * kThreads + threadIdx.x; o < n_out;
+       o += (long long)gridDim.x * kThreads) {
+    const long long v = o / d;
+    const int c = static_cast<int>(o - v * d);
+    const long long hi = indptr[v + 1];
+    float acc = 0.f;
+    for (long long e = indptr[v]; e < hi; ++e)
+      acc = round_bf16(acc + __bfloat162float(h[src[e] * d + c]));
+    out[o] = __float2bfloat16_rn(acc / fmaxf(round_bf16(deg[v]), 1.f));
+  }
+}
+
 // Blocks of kThreads for `work` items: enough for 8 blocks an SM, no more
 // than the work needs.
 int grid_for(long long work) {
@@ -157,6 +215,31 @@ int fanout_mean_bf16_bwd(const void* g, long long rows, int f, int d, void* dx, 
     const long long n_in = rows * d;
     fanout_mean_bwd_scalar<<<grid_for(n_in), kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(g), n_in, d, f, static_cast<__nv_bfloat16*>(dx));
+  }
+  return cudaGetLastError();
+}
+
+// h (n_h, d) bf16 contiguous, src (E,) int64 in row order, indptr (N + 1,)
+// int64, deg (N,) f32 -> out (N, d) bf16.  The caller checks that src and
+// indptr index inside h and src.
+int segment_mean_bf16(const void* h, const void* src, const void* indptr, const void* deg,
+                      long long n, int d, void* out, void* stream) {
+  if (n < 0 || d <= 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* s = static_cast<const long long*>(src);
+  const long long* ip = static_cast<const long long*>(indptr);
+  const float* dg = static_cast<const float*>(deg);
+  if (d % 2 == 0 && aligned4(h) && aligned4(out)) {
+    const long long pairs = n * (d / 2);
+    segment_mean_pairs<<<grid_for(pairs), kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat162*>(h), s, ip, dg, pairs, d / 2,
+        static_cast<__nv_bfloat162*>(out));
+  } else {
+    const long long n_out = n * d;
+    segment_mean_scalar<<<grid_for(n_out), kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(h), s, ip, dg, n_out, d,
+        static_cast<__nv_bfloat16*>(out));
   }
   return cudaGetLastError();
 }

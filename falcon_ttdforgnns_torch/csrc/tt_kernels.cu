@@ -69,7 +69,10 @@
 //   and 32 staged (id, position) pairs: 4.2 KB at the products shapes, so
 //   four 8-warp CTAs fit an SM at <= 64 registers a thread (no spills but
 //   for the 4-core f32 store's 56 bytes; at <= 80 registers, three CTAs, the
-//   uniform ids took 0.61 ms).  Measured: PERF.md.
+//   uniform ids took 0.61 ms).  The state grows with the ranks (57 KB a warp
+//   at the products shapes and ranks 256, 256), so a CTA has 8 warps where
+//   8 warps' state fits the card's 227 KB a CTA, else 4, 2 or 1 (tt_grads
+//   likewise).  Measured: PERF.md.
 //
 // tt_grads  replaces tt_pallas.py:_bwd_kernel.
 //   The backward is linear in d_out, and ids that share a prefix (digits
@@ -179,7 +182,11 @@
 namespace {
 
 constexpr int kMaxCores = 4;
+// Warps a CTA of tt_fwd and tt_grads: kWarpsPerBlock (their launch bounds)
+// where that many warps' shared memory fits a CTA, else 4, 2 or 1
+// (warps_for); the kernels read the count from blockDim.
 constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpChoices[] = {8, 4, 2, 1};
 
 struct TTMeta {
   int T;
@@ -460,6 +467,7 @@ tt_fwd_kernel(const int* __restrict__ ids, const long long* __restrict__ perm, l
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
   constexpr int K = T - 1;
   const int q = m.q[K], rl = m.r[K], Ll = m.L[K];
   float* row = smem + warp * fwd_warp_floats(m);
@@ -479,8 +487,8 @@ tt_fwd_kernel(const int* __restrict__ ids, const long long* __restrict__ perm, l
   const unsigned row_step = (unsigned)m.D * block;  // the SR salt of row b + block
 
   const long long n_chunks = (B + chunk - 1) / chunk;
-  for (long long c = (long long)blockIdx.x * kWarpsPerBlock + warp; c < n_chunks;
-       c += (long long)gridDim.x * kWarpsPerBlock) {
+  for (long long c = (long long)blockIdx.x * warps + warp; c < n_chunks;
+       c += (long long)gridDim.x * warps) {
     const long long hi = (c + 1) * chunk < B ? (c + 1) * chunk : B;
     int d[T] = {};  // digits of the current id
     int cur = 0;
@@ -606,6 +614,7 @@ tt_grads_kernel(const int* __restrict__ ids, const long long* __restrict__ perm,
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
   const int last = m.L[T - 1] * m.r[T - 1];  // size of P_{T-2}, G_{T-2}
   GradsWarp w;
   w.P = smem + warp * (2 * m.P_total + m.D + 2 * kStage);
@@ -620,8 +629,8 @@ tt_grads_kernel(const int* __restrict__ ids, const long long* __restrict__ perm,
   for (int i = lane; i < last; i += 32) w.SG[i] = 0.f;
 
   const long long n_chunks = (B + chunk - 1) / chunk;
-  for (long long c = (long long)blockIdx.x * kWarpsPerBlock + warp; c < n_chunks;
-       c += (long long)gridDim.x * kWarpsPerBlock) {
+  for (long long c = (long long)blockIdx.x * warps + warp; c < n_chunks;
+       c += (long long)gridDim.x * warps) {
     const long long hi = (c + 1) * chunk < B ? (c + 1) * chunk : B;
     int d[T] = {};  // digits of the current id
     int cur = 0;
@@ -849,16 +858,29 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// One wave of `kernel` over the chunks of B sorted positions: as many CTAs
-// as fit on the card at once, fewer if there are fewer chunks than warps.
+// Warps a CTA for `warp_bytes` of shared memory a warp: the first of
+// kWarpChoices whose CTA fits the card's largest dynamic shared memory, 0 if
+// not even one warp fits.  8 covers the products shapes at ranks up to ~118
+// (tt_grads) or ~129 (tt_fwd); at ranks 256, 256 a warp takes 57 KB
+// (tt_fwd) or 62 KB (tt_grads), and a CTA 4 or 2 warps.
+int warps_for(size_t warp_bytes) {
+  for (int w : kWarpChoices)
+    if ((size_t)w * warp_bytes <= (size_t)max_dynamic_smem()) return w;
+  return 0;
+}
+
+// One wave of `kernel` in CTAs of `warps` warps over the chunks of B sorted
+// positions: as many CTAs as fit on the card at once, fewer if there are
+// fewer chunks than warps.
 template <typename K>
-cudaError_t one_wave(K kernel, size_t smem, long long B, int chunk, unsigned* grid) {
+cudaError_t one_wave(K kernel, int warps, size_t smem, long long B, int chunk,
+                     unsigned* grid) {
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarpsPerBlock * 32, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, smem);
   if (e != cudaSuccess) return e;
-  const long long want = ((B + chunk - 1) / chunk + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const long long want = ((B + chunk - 1) / chunk + warps - 1) / warps;
   const long long cap = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
   *grid = (unsigned)(want < cap ? want : cap);
   return cudaSuccess;
@@ -869,14 +891,16 @@ cudaError_t launch_fwd(const int* ids, const long long* perm, long long B, int c
                        const CorePtrs& c, const TTMeta& m, void* out, const int* seed,
                        unsigned block, cudaStream_t st) {
   auto kernel = tt_fwd_kernel<T, S>;
-  const size_t smem = sizeof(float) * kWarpsPerBlock * fwd_warp_floats(m);
+  const int warps = warps_for(sizeof(float) * fwd_warp_floats(m));
+  if (warps == 0) return cudaErrorInvalidConfiguration;  // not one warp's state fits
+  const size_t smem = sizeof(float) * warps * fwd_warp_floats(m);
   unsigned grid = 0;
-  cudaError_t e = one_wave(kernel, smem, B, chunk, &grid);
+  cudaError_t e = one_wave(kernel, warps, smem, B, chunk, &grid);
   if (e != cudaSuccess) return e;
   // values a lane stores at once: rows start at multiples of D values
   const int vec = (reinterpret_cast<uintptr_t>(out) & 15) ? 1
                   : m.D % 4 == 0 ? 4 : m.D % 2 == 0 ? 2 : 1;
-  kernel<<<grid, kWarpsPerBlock * 32, smem, st>>>(
+  kernel<<<grid, warps * 32, smem, st>>>(
       ids, perm, B, chunk, c, m, static_cast<typename OutOf<S>::type*>(out), seed, block, vec);
   return cudaGetLastError();
 }
@@ -899,12 +923,14 @@ cudaError_t launch_grads(const int* ids, const long long* perm, const DT* dout, 
                          int chunk, const CorePtrs& c, const TTMeta& m, float* grad,
                          cudaStream_t st) {
   auto kernel = tt_grads_kernel<T, DT>;
-  const size_t smem =
-      kWarpsPerBlock * (sizeof(float) * (2 * m.P_total + m.D) + sizeof(int) * 2 * kStage);
+  const size_t warp_bytes = sizeof(float) * (2 * m.P_total + m.D) + sizeof(int) * 2 * kStage;
+  const int warps = warps_for(warp_bytes);
+  if (warps == 0) return cudaErrorInvalidConfiguration;  // not one warp's state fits
+  const size_t smem = warps * warp_bytes;
   unsigned grid = 0;
-  cudaError_t e = one_wave(kernel, smem, B, chunk, &grid);
+  cudaError_t e = one_wave(kernel, warps, smem, B, chunk, &grid);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, kWarpsPerBlock * 32, smem, st>>>(ids, perm, dout, B, chunk, c, m, grad);
+  kernel<<<grid, warps * 32, smem, st>>>(ids, perm, dout, B, chunk, c, m, grad);
   return cudaGetLastError();
 }
 

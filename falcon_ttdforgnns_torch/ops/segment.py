@@ -4,16 +4,44 @@ Port of ``falcon_ttdforgnns_tpu/ops/segment.py``.  In the JAX package these
 are XLA gathers and scatter-adds, not Pallas kernels; their port is
 ``index_select`` and ``index_add_``, over edge chunks where the reference
 chunks, which bounds the (chunk, D) gathered messages.
+
+Under bf16, XLA's segment sum adds each destination row's messages in
+edge order with a bf16 rounding after every add, where ``index_add_``
+sums in f32 and rounds once; so :func:`spmm_mean` of a bf16 ``h`` (the
+``--bf16`` evaluate and layer-wise inference) goes through
+:func:`segment_mean_bf16`, the wrapper of the Hopper kernel
+``segment_mean_bf16`` (``csrc/tower_kernels.cu``), which adds in that
+order and rounds as XLA does, beside its plain version
+:func:`segment_mean_bf16_plain`.  This is no TPU kernel's port.  The
+wrapper runs the plain version only for tensors on the CPU; for a CUDA
+tensor it launches its kernel or raises.  Every launch adds one to its
+entry in :func:`launch_counts`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from . import _build
+
 SPMM_CHUNK = 1 << 22         # spmm_sum_chunked, spmm_mean, gcn_norm_spmm
 HEADED_SPMM_CHUNK = 1 << 19  # headed_spmm
+# a bf16 count of ones stops here: 256 + 1 rounds (to even) back to 256
+BF16_COUNT_MAX = 256
+
+KERNELS = ("segment_mean_bf16",)
+_launches = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        _launches[name] = 0
+
+
+def launch_counts() -> dict:
+    return dict(_launches)
 
 
 def spmm_sum(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, num_nodes: int,
@@ -69,10 +97,96 @@ def spmm_sum_chunked(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     return ChunkedSpmm.apply(h, src, dst, num_nodes, edge_weight, chunk)
 
 
+def edges_by_row(src: torch.Tensor, dst: torch.Tensor,
+                 num_nodes: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The COO edges as CSR rows of their destinations: (src in row order,
+    indptr (num_nodes + 1,) int64, each row's in-degree).  Each row keeps
+    its edges in their COO order: ``CSRGraph.to_coo()`` edges, whose dst is
+    non-decreasing, are taken as they are, others by a stable sort."""
+    if dst.numel() > 1 and bool((dst[1:] < dst[:-1]).any()):
+        dst, order = torch.sort(dst, stable=True)
+        src = src.index_select(0, order)
+    counts = torch.bincount(dst, minlength=num_nodes)
+    indptr = torch.zeros(num_nodes + 1, dtype=torch.int64, device=dst.device)
+    torch.cumsum(counts, 0, out=indptr[1:])
+    return src.long().contiguous(), indptr, counts
+
+
+def segment_mean_bf16_plain(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
+                            deg: torch.Tensor) -> torch.Tensor:
+    """(N, D) bf16 mean of each row's in-edges: ``acc = bf16(acc +
+    h[src[e]])`` over the row's edges ``indptr[v] .. indptr[v+1] - 1`` in
+    order from +0, then ``bf16(acc / max(bf16(deg[v]), 1))``.  The k-th
+    in-edge of every row at once, k = 0, 1, ...: each add rounds to bf16 as
+    XLA's does."""
+    n = indptr.shape[0] - 1
+    counts = indptr[1:] - indptr[:-1]
+    rows = torch.repeat_interleave(torch.arange(n, device=h.device), counts)
+    rank = torch.arange(src.shape[0], device=h.device) - indptr[rows]
+    by_rank = torch.argsort(rank, stable=True)
+    ends = torch.cumsum(torch.bincount(rank, minlength=1), 0).tolist()
+    acc = torch.zeros((n, h.shape[1]), dtype=torch.bfloat16, device=h.device)
+    start = 0
+    for end in ends:
+        sel = by_rank[start:end]
+        r = rows.index_select(0, sel)
+        acc[r] = acc[r] + h.index_select(0, src.index_select(0, sel))
+        start = end
+    den = torch.clamp(deg.to(torch.bfloat16), min=1.0)
+    return (acc.float() / den.float()[:, None]).to(torch.bfloat16)
+
+
+def segment_mean_bf16(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
+                      deg: torch.Tensor) -> torch.Tensor:
+    """The kernel's wrapper: h (n_h, D) bf16, src (E,) int64 in row order,
+    indptr (N + 1,) int64, deg (N,) -> (N, D) bf16 (see
+    :func:`segment_mean_bf16_plain`).  Forward only."""
+    if h.dtype != torch.bfloat16:
+        raise TypeError(f"segment_mean_bf16 takes bfloat16, not {h.dtype}")
+    if {t.device.type for t in (h, src, indptr, deg)} == {"cpu"}:
+        return segment_mean_bf16_plain(h, src, indptr, deg)
+    if len({t.device for t in (h, src, indptr, deg)}) != 1 or h.device.type != "cuda":
+        raise ValueError(f"segment_mean_bf16 takes tensors on one CUDA device or on the "
+                         f"CPU, got {h.device}, {src.device}, {indptr.device}, {deg.device}")
+    n = indptr.shape[0] - 1
+    if src.dtype != torch.int64 or indptr.dtype != torch.int64 or src.dim() != 1 or n < 0:
+        raise TypeError("segment_mean_bf16: src and indptr are 1-D int64")
+    if deg.shape != (n,):
+        raise ValueError(f"segment_mean_bf16: deg of shape {tuple(deg.shape)}, expected ({n},)")
+    if int(indptr[0]) != 0 or int(indptr[-1]) != src.shape[0] or (src.numel() and (
+            int(src.min()) < 0 or int(src.max()) >= h.shape[0])):
+        raise ValueError("segment_mean_bf16: indptr must span src, and src index rows of h")
+    h, src, indptr = h.contiguous(), src.contiguous(), indptr.contiguous()
+    deg = deg.to(torch.float32).contiguous()
+    out = torch.empty((n, h.shape[1]), dtype=torch.bfloat16, device=h.device)
+    rc = _build.library("tower_kernels").segment_mean_bf16(
+        h.data_ptr(), src.data_ptr(), indptr.data_ptr(), deg.data_ptr(), n, h.shape[1],
+        out.data_ptr(), _build.current_stream(h.get_device()))
+    _build.check(rc, "segment_mean_bf16", "tower_kernels")
+    if n:
+        _launches["segment_mean_bf16"] += 1
+    return out
+
+
 def spmm_mean(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
               num_nodes: int, in_deg: Optional[torch.Tensor] = None,
               chunk: int = SPMM_CHUNK) -> torch.Tensor:
-    """Mean aggregation: sum / in-degree (degree from dst if not given)."""
+    """Mean aggregation: sum / in-degree (degree from dst if not given).
+
+    A bf16 ``h`` gives the JAX package's bf16 result bit for bit: each
+    row's sum in edge order with a bf16 rounding after every add
+    (:func:`segment_mean_bf16`, whatever ``chunk``: the reference's chunks
+    keep that order), divided by the degree cast to bf16, counted as a bf16
+    sum of ones (so at most 256) where none is given.  That path is
+    forward only (evaluation); the f32 path has the transposed sum as its
+    backward."""
+    if h.dtype == torch.bfloat16:
+        if h.requires_grad and torch.is_grad_enabled():
+            raise ValueError("the bf16 spmm_mean is forward only; train full-graph in f32")
+        src, indptr, counts = edges_by_row(src, dst, num_nodes)
+        if in_deg is None:
+            in_deg = torch.clamp(counts, max=BF16_COUNT_MAX)
+        return segment_mean_bf16(h, src, indptr, in_deg)
     s = spmm_sum_chunked(h, src, dst, num_nodes, chunk=chunk)
     if in_deg is None:
         in_deg = torch.bincount(dst, minlength=num_nodes)

@@ -91,6 +91,13 @@ def _spec(shapes: TTShapes):
     return (ctypes.c_int * len(vals))(*vals)
 
 
+def _shape_name(shapes: TTShapes) -> str:
+    """The TT shape as a launch error names it (a shape whose state does not
+    fit one warp's shared memory fails with CUDA's "invalid configuration")."""
+    return (f"p={tuple(shapes.p_shapes)} q={tuple(shapes.q_shapes)} "
+            f"ranks={tuple(shapes.full_ranks)}")
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -258,7 +265,7 @@ def _launch_fwd(shapes, cores, ids, order, chunk, out_dtype, out_kind, seed=None
                                  _spec(shapes), *_core_ptrs(cores), out.data_ptr(), out_kind,
                                  None if seed is None else seed.data_ptr(), block,
                                  _build.current_stream(ids.get_device()))
-    _build.check(rc, "tt_fwd")
+    _build.check(rc, f"tt_fwd at {_shape_name(shapes)}")
     return out
 
 
@@ -425,7 +432,7 @@ def tt_grads(shapes: TTShapes, cores: Sequence[torch.Tensor], ids: torch.Tensor,
                                        int(bf16), B, chunk or GRADS_CHUNK, _spec(shapes),
                                        *_core_ptrs(cores), out.data_ptr(),
                                        _build.current_stream(ids.get_device()))
-        _build.check(rc, "tt_grads")
+        _build.check(rc, f"tt_grads at {_shape_name(shapes)}")
         _launches["tt_grads[bf16]" if bf16 else "tt_grads"] += 1
     grads, off = [], 0
     for k in range(shapes.ndim):
@@ -462,6 +469,12 @@ def _on_card(cores, *rest) -> bool:
     if cores and cores[0].is_cuda:
         return True
     return not _on_cpu(*cores, *[t for ts in rest for t in ts])
+
+
+def clear_launch_args() -> None:
+    """Forget the update wrappers' kept argument sets (a trainer's cores and
+    optimizer state), as when that trainer is gone."""
+    _ARGS.clear()
 
 
 def _launch_args(name: str, kept, make, *make_args):

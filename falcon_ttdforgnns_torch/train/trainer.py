@@ -14,7 +14,8 @@ the grouping of a puregpu epoch's seeds and the cadence of its log lines.
 Evaluation is full-graph propagation, its SpMM chosen by ``--spmm``:
 ``xla`` the chunked ``index_add_``, ``pallas`` the tiled kernel (B7),
 ``blocked`` the window-gather kernel (B9); ``infer_full`` is the
-layer-wise form of it.  The reference takes its XLA route for ``pallas``
+layer-wise form of it; ``--eval-sampled`` evaluates by the sampled fan-out
+forward instead (:meth:`SageTrainer.evaluate_sampled`).  The reference takes its XLA route for ``pallas``
 off a TPU; the port runs B7 on the card and its plain version on the CPU,
 so the CPU tests reach the routing.
 
@@ -79,7 +80,7 @@ import torch.nn.functional as F
 from ..graph.csr import NodeDataset
 from ..graph.device_sampler import (build_neighbor_table, device_sample_block,
                                     device_sample_block_table)
-from ..graph.sampler import NeighborLoader
+from ..graph.sampler import NeighborLoader, sample_block
 from ..models.sage import SAGE, collect_level_ids
 from ..nn.tt_embedding import AccessCountingEmbedding
 from ..ops.spmm_blocked import (build_window_tiles, chunk_tiles_host,
@@ -159,13 +160,8 @@ class TrainConfig:
 
 
 def _check_supported(cfg: TrainConfig) -> None:
-    missing = [
-        (cfg.dist or cfg.node_shard, "--dist/--node-shard (ROADMAP A8)"),
-        (cfg.eval_sampled, "--eval-sampled (ROADMAP A9)"),
-    ]
-    for unsupported, what in missing:
-        if unsupported:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.dist or cfg.node_shard:
+        raise NotImplementedError("--dist/--node-shard (ROADMAP A8) is not ported yet")
     if cfg.mode not in MODES or cfg.sampler not in SAMPLERS:
         raise ValueError(f"unknown mode {cfg.mode!r} or sampler {cfg.sampler!r}; "
                          f"expected one of {MODES} and of {SAMPLERS}")
@@ -602,10 +598,44 @@ class SageTrainer:
         return self._spmms[route]
 
     @torch.no_grad()
+    def evaluate_sampled(self, seed: int = 1234) -> Dict[str, float]:
+        """Split accuracies by the sampled fan-out forward (``--eval-sampled``,
+        JAX ``trainer.py:1161-1198``): each evaluated seed runs through the
+        forward training uses, dropout off.  It approximates full-neighbour
+        inference (the fan-out bounds each hop) and is the evaluation that
+        fits one card where the layer-wise one must hold (N, D) activations.
+        As in JAX: one ``default_rng(seed)`` draws, in this order, each split
+        over ``eval_sample_max``'s subsample and then its blocks, sampled on
+        the host even under ``--mode puregpu``; ``max(1, len // B)`` batches
+        a split, the last wrapped to full size around it, each counted as
+        ``B`` seeds.  One host sync a split."""
+        cfg, B = self.cfg, self.cfg.batch_size
+        rng = np.random.default_rng(seed)
+        res = {}
+        for name, idx in (("train", self.ds.train_idx), ("val", self.ds.val_idx),
+                          ("test", self.ds.test_idx)):
+            if len(idx) > cfg.eval_sample_max:
+                idx = rng.choice(idx, cfg.eval_sample_max, replace=False)
+            correct, total = [], 0
+            for b in range(max(1, len(idx) // B)):
+                pick = _wrap_full(idx[b * B:(b + 1) * B], idx, B)
+                blk = sample_block(self.ds.graph, pick, cfg.fanouts, rng)
+                logits = self.model(self._tensor(blk.seeds),
+                                    [self._tensor(l) for l in blk.layers], train=False)
+                labels = self._tensor(self.ds.labels[pick].astype(np.int64))
+                correct.append((logits.argmax(-1) == labels).sum())
+                total += B
+            res[f"{name}_acc"] = int(torch.stack(correct).sum()) / max(total, 1)
+        return res
+
+    @torch.no_grad()
     def evaluate(self) -> Dict[str, float]:
         """Split accuracies by full-graph propagation over every edge through
         the ``--spmm`` route (on the CPU the kernels' plain versions); three
-        scalars come back to the host."""
+        scalars come back to the host.  ``--eval-sampled`` takes
+        :meth:`evaluate_sampled` instead."""
+        if self.cfg.eval_sampled:
+            return self.evaluate_sampled()
         src, dst, deg, labels, *splits = self._eval_graph()
         if self.cfg.spmm == "xla":
             logits = self.model.forward_full_graph(src, dst, deg, train=False,

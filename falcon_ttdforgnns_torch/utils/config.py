@@ -206,7 +206,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     e.add_argument("--log-dir", type=str, default="./logs")
     e.add_argument("--plot", action="store_true")
     e.add_argument("--run-one", action="store_true", help="one fwd/bwd step then exit")
-    e.add_argument("--profile", action="store_true", help="torch.profiler trace (not ported yet)")
+    e.add_argument("--profile", action="store_true",
+                   help="torch.profiler trace of each fit into --profile-dir")
     e.add_argument("--profile-dir", type=str, default="./profiles")
 
     # autotuning (tuning_SAGE.py parity)

@@ -1126,3 +1126,82 @@ def test_cached_steps_on_card_match_cpu(cuda):
         off = (a.detach().cpu() - b.detach()).abs()
         assert float((off > 3 * 1e-3 * 0.003).float().mean()) <= 1e-3, name
         assert float(off.max()) <= 0.05 * 0.003, name
+
+
+def bf16_within(got, want, tol: float) -> bool:
+    """Whether two bf16 tensors are what f32 values within ``tol`` of
+    max|want| of each other round to: apart by at most one bf16 step of the
+    value plus ``tol * max|want|``.  At high ranks an output that cancels
+    to far below the largest one can round more than one step apart, as
+    its f32 sums of 256-term products differ within that absolute bound."""
+    g, w = got.float(), want.float()
+    step = torch.where(w == 0, torch.zeros_like(w),
+                       torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8))
+    return bool(((g - w).abs() <= step + tol * float(w.abs().max())).all())
+
+
+# the tuner's rank candidates at the products shapes: the extremes of its
+# box (2..256), the ES tuner's first candidate round(sqrt(2 * 256)) = 23,
+# and uneven pairs; at 256, 256 a warp's state no longer lets 8 warps share
+# a CTA, so the launchers take 4 (tt_fwd) or 2 (tt_grads)
+RANK_GRID = [(2, 2), (23, 23), (7, 131), (256, 2), (2, 256), (256, 256)]
+
+
+@pytest.mark.parametrize("ranks", RANK_GRID, ids=lambda r: f"{r[0]}x{r[1]}")
+def test_tt_kernels_at_every_tuner_rank(cuda, ranks):
+    """tt_fwd (f32 and bf16 stores), tt_fwd_sr and tt_grads (f32 and bf16
+    d_out) against their plain versions at the products p/q on 2,048 ids
+    with a hot id across chunks: the f32 rows within 1e-5 of their largest
+    and each core's gradient within 1e-4 of its largest, as in
+    test_kernels_match_plain; the bf16 stores as those f32 rows round
+    (bf16_within)."""
+    from falcon_ttdforgnns_torch.ops.tt_shapes import make_tt_shapes
+    shapes = make_tt_shapes(2_449_029, 100, ranks, (125, 140, 140), (5, 5, 4))
+    cores = [torch.tensor(c, device=cuda) for c in tt_init.init_tt_cores(shapes, "normal", 0)]
+    rng = np.random.default_rng(sum(ranks))
+    ids = rng.integers(0, shapes.num_embeddings, 2048).astype(np.int32)
+    ids[::7] = ids[0]
+    ids = torch.tensor(ids, device=cuda)
+    seed = torch.tensor(777, dtype=torch.int32, device=cuda)
+    tt_kernels.reset_launch_counts()
+    assert rel_err(tt_fwd(shapes, cores, ids),
+                   tt_kernels.tt_fwd_plain(shapes, cores, ids)) <= 1e-5
+    for got, want in ((tt_fwd(shapes, cores, ids, torch.bfloat16),
+                       tt_kernels.tt_fwd_plain(shapes, cores, ids, torch.bfloat16)),
+                      (tt_fwd_sr(shapes, cores, ids, seed, 128),
+                       tt_kernels.tt_fwd_sr_plain(shapes, cores, ids, seed, 128))):
+        assert bf16_within(got, want, 1e-5)
+    g = torch.randn(2048, shapes.embedding_dim, device=cuda)
+    for d_out in (g, g.to(torch.bfloat16)):
+        for a, b in zip(tt_grads(shapes, cores, ids, d_out),
+                        tt_kernels.tt_grads_plain(shapes, cores, ids, d_out)):
+            assert rel_err(a, b) <= 1e-4
+    counts = tt_kernels.launch_counts()
+    assert all(counts[k] == 1 for k in ("tt_fwd", "tt_fwd[bf16]", "tt_fwd_sr", "tt_grads",
+                                        "tt_grads[bf16]"))
+
+
+@pytest.mark.parametrize("d", [7, 100, 256])
+def test_segment_mean_bf16_kernel_bit_identical(cuda, d):
+    """The bf16 full-graph mean's kernel against its plain version, bit for
+    bit: a row of 700 in-edges, zero-degree rows, the last row; values
+    N(0, 1) and N(0, 3e4^2); and spmm_mean of a bf16 h launches it once."""
+    from falcon_ttdforgnns_torch.ops import segment
+    rng = np.random.default_rng(d)
+    n = 5000
+    deg = rng.integers(0, 30, n)
+    deg[::9] = 0
+    deg[3], deg[n - 1] = 700, 12
+    dst = torch.tensor(np.repeat(np.arange(n), deg), device=cuda)
+    src = torch.tensor(rng.integers(0, n, int(deg.sum())), device=cuda)
+    degf = torch.tensor(deg.astype(np.float32), device=cuda)
+    s, indptr, _ = segment.edges_by_row(src, dst, n)
+    for scale in (1.0, 3e4):
+        h = (torch.randn(n, d, device=cuda) * scale).to(torch.bfloat16)
+        got = segment.segment_mean_bf16(h, s, indptr, degf)
+        want = segment.segment_mean_bf16_plain(h, s, indptr, degf)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    segment.reset_launch_counts()
+    with torch.no_grad():
+        out = segment.spmm_mean(h, src, dst, n)
+    assert out.dtype == torch.bfloat16 and segment.launch_counts()["segment_mean_bf16"] == 1

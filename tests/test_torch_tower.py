@@ -2,7 +2,7 @@
 ``jnp.mean(axis=2, dtype=bfloat16)``: forward and vector-Jacobian product
 bit for bit (ROADMAP C1), the tower's means through SAGE, and what
 ``--bf16-mean-f32`` changes.  Also the full-graph SpMM mean of evaluate
-under bf16, which still sums as PyTorch's ``index_add_`` does (ROADMAP C2).
+under bf16, which now sums as the reference does (ROADMAP C2).
 """
 
 import jax
@@ -126,13 +126,14 @@ def test_bf16_mean_f32_changes_the_output_in_both(bf16_case):
     assert not np.array_equal(ours_bf16, ours_f32)
 
 
-def test_evaluate_bf16_spmm_mean_sums_as_index_add():
-    """ROADMAP C2: under bf16 the reference's full-graph mean (XLA's
+def test_evaluate_bf16_spmm_mean_is_jax_bit_for_bit():
+    """ROADMAP C2, closed: under bf16 the reference's full-graph mean (XLA's
     segment sum) adds each dst row's messages in edge order with a bf16
-    rounding after every add; the port's index_add_ sums in f32 and rounds
-    once, like the fan-out mean before C1, so about half the outputs
-    differ by a bf16 step or more.  The sequential bf16 sum, written out
-    here, gives the reference's bits."""
+    rounding after every add.  The port's bf16 spmm_mean now does the same
+    (segment_mean_bf16; before, index_add_ summed in f32 and rounded once,
+    and about half the outputs differed), so every bit equals JAX's, and
+    equals the sequential bf16 sum written out here; index_add_'s f32 sum
+    cast back still differs in many outputs."""
     g = hard_synthetic_dataset(num_nodes=2000, avg_degree=5, seed=1).graph
     src, dst = g.to_coo()
     deg = g.degrees.astype(np.float32)
@@ -141,8 +142,11 @@ def test_evaluate_bf16_spmm_mean_sums_as_index_add():
                          jnp.asarray(dst), 2000, jnp.asarray(deg), sorted_dst=True)
     s64, d64 = torch.tensor(src.astype(np.int64)), torch.tensor(dst.astype(np.int64))
     ours = spmm_mean(h, s64, d64, 2000, torch.tensor(deg))
-    share = float((bits(ours) != bits(want)).mean())
-    assert share > 0.3
+    np.testing.assert_array_equal(bits(ours), bits(want))
+    f32_sum = torch.zeros((2000, 24)).index_add_(0, d64, h.float().index_select(0, s64))
+    cast = (f32_sum.to(torch.bfloat16).float()
+            / torch.clamp(torch.tensor(deg).to(torch.bfloat16), min=1.0).float()[:, None])
+    assert float((bits(cast.to(torch.bfloat16)) != bits(want)).mean()) > 0.3
     # the edge-order bf16 sum: the k-th in-edge of every row at once
     rank = np.arange(len(dst)) - g.indptr[dst]
     acc = torch.zeros((2000, 24), dtype=torch.bfloat16)

@@ -126,13 +126,31 @@ preset at products through cli.run (--tune-budget TUNE_BUDGET, cut from
 OGB's mol defaults on synthetic molecule batches, with each of gin/gcn x
 five poolings against the CPU at a tiny size.
 
+Since the multi-device slice (ROADMAP C4, A8.1, A8.2, A8.4), after
+--sampler table: --dist on the card through a one-rank NCCL group given
+to the trainer, so that it takes the data-parallel step (tt_grads, one
+all-reduce of every gradient with the loss and accuracy, tt_adam_apply):
+5 flagship steps against the single-device trainer's from the same seeds
+(counted; how far apart, beside a second single-device run), then, from
+the single-device state restored into it, 5 more held at the
+card-vs-card bf16 margins; ms a step both ways, a profiled DP epoch (busy,
+the all-reduce's records and bytes) and the all-reduce alone.  Then C4,
+the mixed flagship's cut epoch of 3 loader batches at --steps-per-call
+8: 8 steps (final-p sets --steps-per-call 8 explicitly: its 40 warmup
+batches are 5 groups).  After the timed phases: `python -m
+torch.distributed.run --standalone --nproc-per-node 1 -m
+falcon_ttdforgnns_torch.cli --dist --multihost --mode puregpu --sparse
+--bf16 --profile` for an epoch of hard-ogbn-arxiv in a process of its own
+(rc 0, its log naming the nccl group of world size 1, its trace both TT
+kernels), and beside it graft_entry's entry() and dryrun_multichip(1).
+
 The steps run in the order 1, 2, 5, step 6's flagship phases (the main
-path and --sampler table), 6 (e) and (f), then 4, 6 (g) and the
+path, --sampler table, --dist and C4), 6 (e) and (f), then 4, 6 (g) and the
 flagship's checkpoint beside the orderings, 6 (a)-(c) with final-p's
 checkpoint, the tools and models above, 3 in a process of its own (after
-the main path's profile, see main()), the rest of 6, 7, 8 and 9: no
-host-timed phase but the checkpoint's save and restore runs beside the
-orderings.
+the main path's profile, see main()), the rest of 6, 7, 8, the torchrun
+CLI run beside the dry run, and 9: no host-timed phase but the
+checkpoint's save and restore runs beside the orderings.
 
 Exits non-zero, before printing any result, without a CUDA device or
 outside a checkout of the repository; any failed check raises.
@@ -193,6 +211,8 @@ PUREGPU_CACHE_STEPS = 5    # the puregpu flagship with the cache: steps an epoch
 IDS_PER_STEP = 1024 * (1 + 15 + 15 * 10 + 15 * 10 * 5)  # 937,984 at fan-out 5,10,15
 STEPS_FULL_NEIGHBOR = 3    # --full-neighbor steps at products
 CKPT_STEPS = 5             # steps before a save and after a restore
+FINAL_P_GROUP = 8          # final-p's --steps-per-call (the preset's): 40 warmup batches, 5 groups
+C4_BATCHES = 3             # loader batches of C4's cut mixed epoch: one ragged group of 8 steps
 TT_SOURCE = "falcon_ttdforgnns_torch/csrc/tt_kernels.cu"
 SPMM_SOURCE = "falcon_ttdforgnns_torch/csrc/spmm_kernels.cu"
 TOWER_SOURCE = "falcon_ttdforgnns_torch/csrc/tower_kernels.cu"
@@ -1244,14 +1264,16 @@ def sage_eval_routes(ds, config, state, xla_accs, dev):
     return spmms, counts
 
 
-def b8_profile_check(dev) -> None:
+def b8_profile_check(dev) -> bool:
     """One B8 call on the card is one memset and one kernel, with no
     per-tile partials and no index_add_: torch.profiler over one call on a
     random dst-sorted graph (200,000 nodes, 10M edges, D=100; the launches
     do not depend on the size).  It runs in a process of its own
     (in_own_process).  A missing record can only hide work, so any device
     work other than the memset and the tile_sum kernel fails at once, and a
-    profile short of the two is taken again, up to three times."""
+    profile short of the two is taken again, up to three times.  Returns
+    whether a profile was complete: main() takes a second process if not,
+    and raises if that one's three are short too."""
     import torch
     from falcon_ttdforgnns_torch.ops import spmm_tiled as P
     rng = np.random.default_rng(3)
@@ -1273,9 +1295,199 @@ def b8_profile_check(dev) -> None:
             raise AssertionError(f"one B8 call should be one memset and one kernel: {ops}")
         return memsets == 1 and len(kernels) == 1
 
-    if complete_profile(lambda: P.spmm_sum_tile_partials(h, *args), complete,
-                        "one B8 call")[0] is None:
-        raise AssertionError("one B8 call: no complete profile to check")
+    return complete_profile(lambda: P.spmm_sum_tile_partials(h, *args), complete,
+                            "one B8 call")[0] is not None
+
+
+def param_offsets(a, b) -> tuple:
+    """Two trainers' parameters apart: the largest share of a parameter's
+    elements more than 0.1 lr apart, and the largest difference."""
+    offs = [(x.detach() - y.detach()).abs() for x, y in zip(a.model.parameters(),
+                                                            b.model.parameters())]
+    return (max(float((o > 0.1 * LR).float().mean()) for o in offs),
+            max(float(o.max()) for o in offs))
+
+
+def dist_phase(ds, config, dev, counts) -> None:
+    """--dist on the card (ROADMAP A8.1-A8.2): a one-rank NCCL group (a file
+    store in a temporary directory) given to a trainer, so that it takes the
+    data-parallel step (tt_grads, the all-reduce of every gradient with the
+    loss and accuracy, then tt_adam_apply), against the single-device
+    trainer (--dist at world size 1, as JAX's device_count() decides): the
+    flagship (--mode puregpu --sparse --bf16, SAGE 3x256, batch 1024 at
+    5,10,15).  Epoch 0 of STEPS_MAIN steps from the same seeds, the DP one
+    counted, with a second single-device trainer beside them: how far the
+    DP and the second run end from the first (tt_grads' atomics reorder its
+    sums, and Adam's first steps, about lr * sign(g), carry a flipped sign
+    of a near-cancelled element whole).  Then, as the flagship's checkpoint
+    phase holds two card runs, the single-device state restored into the
+    DP trainer and the next epoch on both, held at hold_params' bf16
+    margins; then an epoch of each, timed (ms a step both ways), a profiled
+    DP epoch (device busy, the all-reduce's records and bytes) and the
+    all-reduce of one step's buffer alone, by CUDA events.  Fills
+    counts["dist"]."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from falcon_ttdforgnns_torch.parallel import destroy_process_group, init_process_group
+    from falcon_ttdforgnns_torch.train import SageTrainer
+    must = ("tt_fwd[bf16]", "tt_grads[bf16]", "tt_adam_apply")
+    cfg = config(mode="puregpu", sparse=True, bf16=True, steps_per_call=STEPS_MAIN, dist=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process_group("cuda", f"file://{tmp}/store", 0, 1,
+                           local_rank=torch.cuda.current_device())
+        try:
+            log(f"  NCCL group: backend {dist.get_backend()}, world size {dist.get_world_size()}")
+            one, two = (SageTrainer(cut(ds, STEPS_MAIN), cfg, device=dev) for _ in range(2))
+            dp = SageTrainer(cut(ds, STEPS_MAIN), cfg, device=dev, group=dist.group.WORLD)
+            if one.dp is not None or dp.dp is None or not dp.fused_sparse:
+                raise AssertionError("--dist at world size 1 should be the single-device path, "
+                                     "and a given group the fused data-parallel step")
+            reset_counts()
+            dstats = dp.train_epoch(0)
+            counts["dist"] = checked_counts("dist (one NCCL rank)", must, STEPS_MAIN)
+            single = [t.train_epoch(0)["loss"] for t in (one, two)]
+            if (dp.step, one.step) != (STEPS_MAIN, STEPS_MAIN):
+                raise AssertionError(f"dist: {dp.step} and {one.step} steps")
+            (dshare, dmax), (tshare, tmax) = param_offsets(dp, one), param_offsets(two, one)
+            log(f"  epoch 0 from the same seeds, losses: data-parallel {dstats['loss']:.6f}, "
+                f"single-device {single[0]:.6f} and {single[1]:.6f}; parameters apart from the "
+                f"first single-device run: data-parallel share > 0.1 lr {dshare:.4f}, max "
+                f"{dmax:.3e}; the second single-device run {tshare:.4f}, max {tmax:.3e}")
+            del two
+            checkpoint_roundtrip(one, dp, "the single-device state into the data-parallel "
+                                          "trainer")
+            losses = [t.train_epoch(1)["loss"] for t in (one, dp)]
+            hold_loss(dict(dist="epoch 1"), 1, losses[1], losses[0], True)
+            hold_params(dict(dist="one NCCL rank", epoch=1), dp, one, True, steps=STEPS_MAIN,
+                        where="products")
+            # timed epochs in turns: single, DP, DP, single, ...
+            ms = {one: [], dp: []}
+            for e, turn in enumerate(((one, dp), (dp, one)) * 2, start=2):
+                for tr in turn:
+                    ms[tr].append(tr.train_epoch(e)["epoch_time"] * 1e3 / STEPS_MAIN)
+            nbytes = dp.dp.reduced_bytes
+            n_params = sum(p.numel() for p in dp.model.parameters())
+            prof = {tr: device_ops(lambda: tr.train_epoch(6)) for tr in (one, dp)}
+            buf = torch.zeros(nbytes // 4, dtype=torch.float32, device=dev)
+            ar_ms = cuda_ms(lambda: dist.all_reduce(buf), 20)
+        finally:
+            destroy_process_group()
+    med = {tr: float(np.median(v)) for tr, v in ms.items()}
+    log(f"  ms a step, 4 epochs each in turns (single-device first, then data-parallel first): "
+        f"single-device {', '.join(f'{t:.2f}' for t in ms[one])} (median {med[one]:.2f}), "
+        f"data-parallel over one NCCL rank {', '.join(f'{t:.2f}' for t in ms[dp])} (median "
+        f"{med[dp]:.2f}, {med[dp] / med[one]:.3f}x)")
+    (ops1, wall1, _), (opsd, walld, _) = prof[one], prof[dp]
+    per_step = {k: tuple((c, round(t / STEPS_MAIN / 1e3, 4))
+                         for c, t in (opsd.get(k, (0, 0)), ops1.get(k, (0, 0))))
+                for k in {*opsd, *ops1}}
+    extra = {k[:60]: v for k, v in per_step.items() if v[0][0] != v[1][0]}
+    busy = {tr: sum(t for _, t in prof[tr][0].values()) / STEPS_MAIN / 1e3 for tr in prof}
+    log(f"  the all-reduce: {nbytes} bytes a step ({n_params} parameters' gradients and the "
+        f"loss and accuracy, f32); a profiled epoch each (profiler on): device busy "
+        f"{busy[dp]:.3f} ms a step data-parallel against {busy[one]:.3f} single-device, wall "
+        f"{walld / STEPS_MAIN / 1e3:.2f} against {wall1 / STEPS_MAIN / 1e3:.2f}; the records "
+        f"whose counts differ, (count, device ms a step) data-parallel against single-device: "
+        f"{extra}; the all-reduce alone, back to back, by CUDA events: {ar_ms:.4f} ms a call")
+    del one, dp
+    torch.cuda.empty_cache()
+
+
+def c4_phase(ds, config, dev, counts) -> None:
+    """ROADMAP C4 on the card: the mixed flagship (--sparse --bf16, sampled
+    on the host) on a cut epoch of C4_BATCHES loader batches at
+    --steps-per-call 8, the default: ceil(nb / 8) * 8 steps, the last group
+    filled with the epoch's first batches, each step launching the path's
+    kernels and sorting its ids once (counted).  Fills counts["c4"]."""
+    import torch
+    from falcon_ttdforgnns_torch.train import SageTrainer
+    tr = SageTrainer(cut(ds, C4_BATCHES), config(sparse=True, bf16=True, steps_per_call=8),
+                     device=dev)
+    nb = len(tr.loader)
+    want = -(-nb // 8) * 8
+    reset_counts()
+    stats = tr.train_epoch(0)
+    log(f"  mixed flagship, a cut epoch of {nb} loader batches at --steps-per-call 8: "
+        f"{tr.step} steps (ceil({nb} / 8) * 8 = {want}), loss {stats['loss']:.4f}, "
+        f"{stats['epoch_time'] * 1e3 / tr.step:.1f} ms a step with the host sampling")
+    counts["c4"] = checked_counts("c4", ("tt_fwd[bf16]", "tt_grads[bf16]", "tt_adam_apply"),
+                                  want)
+    if tr.step != want or any(counts["c4"][k] != want for k in ("tt_fwd[bf16]", "tt_grads[bf16]")):
+        raise AssertionError(f"C4: {tr.step} steps, launches {counts['c4']}, want {want}")
+    del tr
+    torch.cuda.empty_cache()
+
+
+def start_torchrun_cli(here: str, extra=()) -> tuple:
+    """python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+    falcon_ttdforgnns_torch.cli --dist --multihost --mode puregpu --sparse
+    --bf16 --profile, an epoch of hard-ogbn-arxiv, in a process of its own,
+    started after the timed phases (the dry run beside it times nothing);
+    finish_torchrun_cli reads it.  Writes into a temporary directory.
+    `extra` flags go last (a rehearsal on the CPU)."""
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+            "1", "-m", "falcon_ttdforgnns_torch.cli", "--dist", "--multihost", "--mode",
+            "puregpu", "--sparse", "--bf16", "--profile", "--profile-dir", f"{tmp}/prof",
+            "--dataset", "hard-ogbn-arxiv", "--epochs", "1", "--log-every", "1000",
+            "--ckpt-dir", f"{tmp}/ck", "--log-dir", f"{tmp}/logs", *extra]
+    proc = subprocess.Popen(argv, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    CHILDREN.append(proc)
+    return proc, tmp, time.perf_counter()
+
+
+def finish_torchrun_cli(job) -> None:
+    """Wait for start_torchrun_cli's process; raise unless it ended 0, its
+    log names the nccl backend and world size 1, it printed its result, and
+    its trace names tt_fwd's and tt_grads' kernels."""
+    import glob
+    import shutil
+    proc, tmp, t0 = job
+    try:
+        out, err = proc.communicate(timeout=600)
+        sec = time.perf_counter() - t0
+        for line in err.splitlines():
+            if any(k in line for k in ("multihost", "epoch 0", "Error", "error")):
+                log(f"  | {line[-300:]}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the torchrun CLI run failed ({proc.returncode}):\n"
+                                 f"{err[-3000:]}")
+        best = json.loads(out.strip().splitlines()[-1])
+        traces = sorted(glob.glob(f"{tmp}/prof/*.json"))
+        named = []
+        for t in traces:
+            with open(t) as f:
+                text = f.read()
+            named.append("tt_fwd_kernel" in text and "tt_grads_kernel" in text)
+        group = "process group backend nccl, world size 1" in err
+        log(f"  torchrun --nproc-per-node 1 ... cli --dist --multihost --mode puregpu --sparse "
+            f"--bf16 --profile on hard-ogbn-arxiv: rc 0 in {sec:.0f} s, {best}; the nccl group "
+            f"of world size 1 logged: {group}; {len(traces)} traces "
+            f"({[os.path.getsize(t) // 10**6 for t in traces]} MB) naming tt_fwd_kernel and "
+            f"tt_grads_kernel: {named}")
+        if set(best) != {"best"} or not group or not traces or not all(named):
+            raise AssertionError("the torchrun CLI run left no result, group line or trace")
+    finally:
+        shutil.rmtree(tmp)
+
+
+def dryrun_phase() -> None:
+    """graft_entry on the card: entry()'s forward ((32, 8) finite logits)
+    and dryrun_multichip(1), one spawned NCCL rank taking the data-parallel
+    step, a grouped mixed epoch and a puregpu --sparse epoch."""
+    import torch
+    from falcon_ttdforgnns_torch import graft_entry
+    fn, args = graft_entry.entry()
+    out = fn(*args)
+    if tuple(out.shape) != (32, 8) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"entry(): {tuple(out.shape)}")
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(1)
+    log(f"  entry() forward {tuple(out.shape)} on the card; dryrun_multichip(1) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 CHILDREN = []  # the processes start_own_process started, stopped when the script ends
@@ -1765,7 +1977,7 @@ def final_p_phase(ds, config, K, dev, counts) -> None:
     log(f"  host sampler, one batch of {IDS_PER_STEP} ids on the 128-partitioned graph: native "
         f"{', '.join(f'{t:.1f}' for t in native)} ms, numpy "
         f"{', '.join(f'{t:.1f}' for t in numpy_path)} ms")
-    cfg = config(cache_size=CACHE_K)
+    cfg = config(cache_size=CACHE_K, steps_per_call=FINAL_P_GROUP)
     t0 = time.perf_counter()
     tr = SageTrainer(dataclasses.replace(ds, train_idx=warm), cfg, device=dev)
     log(f"  final-p trainer built in {time.perf_counter() - t0:.1f} s; {W} warmup steps on "
@@ -1829,7 +2041,8 @@ def final_p_phase(ds, config, K, dev, counts) -> None:
     # runs, up to 33 rows)
     hold_params(dict(final_p="restored"), fresh, tr, True, steps=CKPT_STEPS, where="products")
     del tr, fresh
-    plain = SageTrainer(dataclasses.replace(ds, train_idx=warm), config(), device=dev)
+    plain = SageTrainer(dataclasses.replace(ds, train_idx=warm),
+                        config(steps_per_call=FINAL_P_GROUP), device=dev)
     plain.train_epoch(0)
     uncached = train_steps(plain, batches, "final-p without the cache")
     del plain
@@ -2811,7 +3024,10 @@ def main() -> int:
                     f"{line.split(':', 1)[1].strip()}; {spill}")
 
     log("one B8 call, profiled:")
-    in_own_process(here, "b8_profile_check")
+    if not in_own_process(here, "b8_profile_check"):
+        log("  (three short profiles in that process: a second process)")
+        if not in_own_process(here, "b8_profile_check"):
+            raise AssertionError("one B8 call: no complete profile to check in two processes")
     torch.cuda.empty_cache()
 
     # the products graph, in its generator's order
@@ -2838,6 +3054,11 @@ def main() -> int:
     log("the flagship's phases (nothing else running on the host):")
     other_b = main_path_phase(ds, config, K, dev, counts)
     table_phase(ds, config, dev, counts)
+    log("--dist over one NCCL rank, the flagship's data-parallel step against its "
+        "single-device step:")
+    dist_phase(ds, config, dev, counts)
+    log("C4, the mixed epoch's step groups:")
+    c4_phase(ds, config, dev, counts)
     log("the baseline preset (--no-tt) and the TT flagship in f32:")
     baseline_phase(ds, config, dev, counts)
     log("--no-tt and --full-neighbor steps, card vs CPU on the tiny graph:")
@@ -2952,6 +3173,11 @@ def main() -> int:
     spmm_res, counts["kernel phase"] = spmm_kernel_phase(ds, spmms, dev)
     res.update(spmm_res)
     res.update(tower_res)
+    log("the CLI under torchrun, --dist --multihost over one NCCL rank, started after the timed "
+        "phases; beside it graft_entry's entry() and dryrun_multichip(1) on the card:")
+    torchrun_job = start_torchrun_cli(here)
+    dryrun_phase()
+    finish_torchrun_cli(torchrun_job)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"total {time.perf_counter() - t_all:.0f} s")
 

@@ -23,12 +23,25 @@ the TT ranks (``utils/tuner.py``): one epoch a candidate, objective the
 inverse of its samples/s, then prints ``{"best_ranks": ..., "objective":
 ...}``.  :func:`main` parses the flags, loads and reorders the dataset
 (:func:`load_dataset`) and hands both to :func:`run`.
+
+``--dist`` trains data-parallel over a ``torch.distributed`` process group
+of one rank per card (``parallel/``), which :func:`main` sets up under
+``--multihost`` (``torchrun``'s environment, or JAX's
+``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``) or wherever
+a launcher's ``WORLD_SIZE`` is above 1, and tears down at the end:
+
+    python -m torch.distributed.run --nproc-per-node 8 \
+        -m falcon_ttdforgnns_torch.cli --dist --mode puregpu --sparse --bf16
+
+Rank 0 alone logs and writes predictions, tables and checkpoints; the other
+ranks wait for it at a barrier.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import logging
 import os
 import time
 
@@ -37,14 +50,31 @@ import torch
 
 
 def main(argv=None):
+    import torch.distributed as dist
+
+    from .parallel import destroy_process_group, init_multihost, rank
     from .utils.config import parse_args, apply_preset
     from .utils.logger import get_logger
 
     args = apply_preset(parse_args(argv))
-    logger = get_logger("falcon_torch", args.log_dir)
-    if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet (ROADMAP A8)")
-    return run(args, load_dataset(args, logger), logger)
+    # the group first, so that rank 0 alone logs; one set up by the caller stays
+    owned = not dist.is_initialized() and (
+        args.multihost or int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    if owned:
+        init_multihost(device=args.device)
+    try:
+        r = rank()
+        logger = (get_logger("falcon_torch", args.log_dir) if r == 0 else
+                  get_logger(f"falcon_torch.rank{r}", level=logging.ERROR))
+        if dist.is_initialized():
+            logger.info(f"multihost: process group backend {dist.get_backend()}, world size "
+                        f"{dist.get_world_size()}, rank {r}")
+        elif args.multihost:
+            logger.info("multihost: one process, no process group")
+        return run(args, load_dataset(args, logger), logger)
+    finally:
+        if owned:
+            destroy_process_group()
 
 
 def load_dataset(args, logger):
@@ -72,6 +102,7 @@ def run(args, ds, logger):
     ``--autotune`` search), then what the flags ask after each fit.
     Returns the best accuracies (None for ``--autotune``, whose result is
     printed)."""
+    from .parallel import rank, world_size
     from .train import FullGraphConfig, FullGraphTrainer, SageTrainer, TrainConfig
     from .train.checkpoint import save_checkpoint
     from .utils import metrics as M
@@ -152,6 +183,14 @@ def run(args, ds, logger):
             return trainer.fit()
 
     def after_fit(trainer, result):
+        # --dist: rank 0 writes, the others wait for it
+        if rank() == 0:
+            write_outputs(trainer, result)
+        if world_size() > 1:
+            torch.distributed.barrier()
+        return result
+
+    def write_outputs(trainer, result):
         logger.info(f"best: {result['best']}")
         if args.save_pred and not args.skip_eval and hasattr(trainer, "infer_full"):
             # the per-node prediction dump (sage_dgl_partition.py:373-374)
@@ -182,7 +221,6 @@ def run(args, ds, logger):
             path = save_checkpoint(args.ckpt_dir, trainer_step(trainer),
                                    *trainer.checkpoint_state(), {"best": result["best"]})
             logger.info(f"checkpoint: {path}")
-        return result
 
     if args.autotune:
         autotune(args, run_once, logger)
@@ -195,7 +233,7 @@ def run(args, ds, logger):
         if "best" in result and (best is None
                                  or result["best"]["test_acc"] > best["test_acc"]):
             best = result["best"]
-    if best:
+    if best and rank() == 0:
         print(json.dumps({"best": best}))
     return best
 
@@ -222,6 +260,7 @@ def autotune(args, run_once, logger):
     candidate to candidate.  Logs each candidate's ranks, samples/s and
     peak device memory, and prints the best as one JSON line."""
     from .ops import tt_kernels
+    from .parallel import rank
     from .utils import metrics as M
     from .utils.tuner import tune_tt_rank
 
@@ -245,7 +284,8 @@ def autotune(args, run_once, logger):
         return tput
 
     tr = tune_tt_rank(tput_of, budget=args.tune_budget, seed=args.seed)
-    print(json.dumps({"best_ranks": tr.best_params, "objective": tr.best_value}))
+    if rank() == 0:
+        print(json.dumps({"best_ranks": tr.best_params, "objective": tr.best_value}))
     return tr
 
 

@@ -7,10 +7,15 @@ step per batch.  Under ``--mode puregpu`` the CSR (or, with ``--sampler
 table``, a prebuilt neighbour table) is placed on the device once, each
 epoch's seeds and labels cross in one copy per group of
 ``steps_per_call`` batches, and every step samples its fan-out tree on the
-device (``graph/device_sampler.py``) before the same step body.  The step
-runs eagerly, one step per call: the JAX package's multi-step
-``fori_loop`` has no counterpart here, so ``steps_per_call`` sets only
-the grouping of a puregpu epoch's seeds and the cadence of its log lines.
+device (``graph/device_sampler.py``) before the same step body.  Each
+step runs eagerly, one step per call: the JAX package's multi-step
+``fori_loop`` has no counterpart here, but its grouping does.  With
+``steps_per_call`` S > 1 an epoch runs in groups of S steps, each group
+recording its mean loss and accuracy on JAX's log cadence: a puregpu
+epoch's groups are S batches of its seeds, copied to the device at once; a
+mixed epoch's are S loader batches (JAX ``_grouped_batches``), the last
+ragged group filled with the epoch's first batches again, so that an epoch
+of nb batches is ceil(nb / S) * S steps, as in JAX.
 Evaluation is full-graph propagation, its SpMM chosen by ``--spmm``:
 ``xla`` the chunked ``index_add_``, ``pallas`` the tiled kernel (B7),
 ``blocked`` the window-gather kernel (B9); ``infer_full`` is the
@@ -64,6 +69,21 @@ warms up: nothing hits, and the accesses are counted by the host loader
 After it :meth:`maybe_populate_cache` caches the K most accessed ids'
 rows and resets the cache group's optimizer state; later epochs serve the
 hits from the cache.
+
+``--dist`` (JAX ``trainer.py:279-357``) is data parallelism over the W
+ranks of a ``torch.distributed`` process group
+(``parallel/data_parallel.py``), taken when the group has more than one
+rank (or is given explicitly).  Every rank holds the whole batch (the same
+host loader, or the same in-step sampler stream) and steps on its rows of
+it; the gradients of the local loss over W, the cores' ``tt_grads`` among
+them, are summed by one all-reduce a step, with the loss and accuracy, so
+that the step is the single-device step on the whole batch.  Mixed
+``--dist`` turns the fused update off, as JAX does (``trainer.py:285-287``);
+under puregpu the fused update is split around the all-reduce: ``tt_grads``,
+the all-reduce, then ``tt_adam_apply`` (or ``tt_sgd_apply`` or
+``tt_adagrad_apply``).  The access counters (``--access-counts``, the
+puregpu cache's) count the whole batch on every rank.  Rank 0 alone logs;
+``fit`` evaluates on rank 0 and broadcasts the accuracies.
 """
 
 from __future__ import annotations
@@ -86,8 +106,10 @@ from ..nn.tt_embedding import AccessCountingEmbedding
 from ..ops.spmm_blocked import (build_window_tiles, chunk_tiles_host,
                                 default_blocked_tiling, spmm_sum_blocked_dev)
 from ..ops.spmm_tiled import auto_tile_edges, build_spmm_tiles_uniform, spmm_sum_tiled_uniform
-from ..ops.tt_kernels import (grouped_order, tt_fused_adagrad, tt_fused_adam,
-                              tt_fused_sgd, tt_fwd, tt_fwd_sr)
+from ..ops.tt_kernels import (grouped_order, tt_adagrad_apply, tt_adam_apply,
+                              tt_fused_adagrad, tt_fused_adam, tt_fused_sgd, tt_fwd,
+                              tt_fwd_sr, tt_grads, tt_sgd_apply)
+from ..parallel.data_parallel import data_parallel_for
 from ..utils import resolve_device
 from ..utils.metrics import access_percentages, throughput
 from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
@@ -102,6 +124,7 @@ from .optim import (ADAGRAD_EPS, ADAM_B1, ADAM_B2, ADAM_EPS, ROWWISE_ADAGRAD_EPS
 SPMM_ROUTES = ("xla", "pallas", "blocked")
 MODES = ("mixed", "puregpu")    # --mode: host sampling, or in-step on the device
 SAMPLERS = ("csr", "table")     # --sampler of --mode puregpu
+EVAL_KEYS = ("train_acc", "val_acc", "test_acc")
 
 
 @dataclass
@@ -160,8 +183,14 @@ class TrainConfig:
 
 
 def _check_supported(cfg: TrainConfig) -> None:
-    if cfg.dist or cfg.node_shard:
-        raise NotImplementedError("--dist/--node-shard (ROADMAP A8) is not ported yet")
+    if cfg.node_shard:
+        raise NotImplementedError("--node-shard (ROADMAP A8.3: the ring SpMM, sharded "
+                                  "inference, the hybrid data x node mesh) is not ported yet")
+    if cfg.dist and not cfg.use_sample:
+        raise ValueError("--dist is a sampled-minibatch DP path; "
+                         "full-neighbor training scales out via "
+                         "--node-shard (optionally combined with "
+                         "--dist for the hybrid data x node mesh)")
     if cfg.mode not in MODES or cfg.sampler not in SAMPLERS:
         raise ValueError(f"unknown mode {cfg.mode!r} or sampler {cfg.sampler!r}; "
                          f"expected one of {MODES} and of {SAMPLERS}")
@@ -262,16 +291,24 @@ class _EpochMeter:
 
 
 class SageTrainer:
+    """``group`` is ``--dist``'s process group (the default group without
+    one, whose world size decides as JAX's device count does); one given
+    explicitly takes the data-parallel step at any world size."""
+
     def __init__(self, dataset: NodeDataset, config: TrainConfig, logger=None,
-                 precomputed_cores=None, device="cuda"):
+                 precomputed_cores=None, device="cuda", group=None):
         _check_supported(config)
-        self.ds, self.cfg, self.logger = dataset, config, logger
-        self.device = resolve_device(device)
         cfg = config
+        self.ds, self.cfg = dataset, config
+        self.device = resolve_device(device)
+        self.dp = data_parallel_for(cfg, self.device, group)
+        quiet = self.dp is not None and self.dp.rank > 0  # rank 0 alone logs
+        self.logger = logger = None if quiet else logger
         self._indptr_dev = self._indices_dev = self._table_dev = None
         if cfg.mode == "puregpu":
             self._put_graph_on_device()
-        warn = logger.warning if logger else (lambda m: print(m, file=sys.stderr))
+        warn = ((lambda m: None) if quiet else logger.warning if logger
+                else (lambda m: print(m, file=sys.stderr)))
         _warn_inert_flags(cfg, warn)
         bf16_tower = cfg.bf16 or cfg.bf16_tower
         # params are drawn on the CPU from a seeded generator, then moved
@@ -295,10 +332,11 @@ class SageTrainer:
             logger.info("bf16 tower: reduce-on-plateau auto-disabled (its ratchet "
                         "reads bf16 loss noise as a plateau); pass "
                         "--plateau-patience to force it on")
-        # a cache, the dense table or --full-neighbor turns the fused update
-        # off (JAX _want_fused_sparse and its use_sample condition)
+        # a cache, the dense table, --full-neighbor or mixed --dist turns the
+        # fused update off (JAX _want_fused_sparse and trainer.py:285-287)
         fusable = cfg.sparse and cfg.use_tt and cfg.cache_size == 0
-        self.fused_sparse = fusable and cfg.use_sample
+        self.fused_sparse = fusable and cfg.use_sample and (
+            cfg.mode == "puregpu" or self.dp is None)
         if fusable and not cfg.use_sample:
             warn("--full-neighbor: the fused --sparse update needs sampled ids, so the "
                  "TT cores take the routed optimizer")
@@ -399,8 +437,12 @@ class SageTrainer:
 
     def _step(self, seeds: torch.Tensor, layers: List[torch.Tensor],
               labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The one step body of both modes, on device tensors."""
+        """The one step body of both modes, on device tensors; under
+        ``--dist`` on this rank's rows of the whole batch given."""
         cfg = self.cfg
+        if self.dp is not None:
+            self._count_other_rows(seeds, layers)
+            seeds, layers, labels = self.dp.shard(seeds, layers, labels)
         labels = labels.long()
         if not self.fused_sparse:
             logits = self.model(seeds, layers, train=True, generator=self.dropout_gen)
@@ -419,13 +461,44 @@ class SageTrainer:
         logits = self.model.forward_from_embeddings(
             h_all, seeds, layers, train=True, generator=self.dropout_gen)
         loss = F.cross_entropy(logits, labels)
-        d_h, *grads = torch.autograd.grad(loss, [h_all, *self.opt_params])
-        scale = self._plateau_scale(loss)
-        adam_update(self.opt_params, grads, self.opt_state, cfg.lr, scale,
-                    cfg.weight_decay)
-        self._fused_core_update(cores, all_ids, d_h.contiguous(), scale, order)
         acc = (logits.detach().argmax(-1) == labels).float().mean()
-        return loss.detach(), acc
+        d_h, *grads = torch.autograd.grad(self._share(loss), [h_all, *self.opt_params])
+        if self.dp is None:
+            scale = self._plateau_scale(loss)
+            adam_update(self.opt_params, grads, self.opt_state, cfg.lr, scale,
+                        cfg.weight_decay)
+            self._fused_core_update(cores, all_ids, d_h.contiguous(), scale, order)
+            return loss.detach(), acc
+        # --dist: the fused update split around the all-reduce, which takes
+        # the cores' batch totals with the dense gradients
+        core_grads = tt_grads(self.shapes, cores, all_ids, d_h.contiguous(), order=order)
+        loss, acc, grads = self.dp.all_reduce(loss, acc, [*grads, *core_grads])
+        n = len(self.opt_params)
+        scale = self._plateau_scale(loss)
+        adam_update(self.opt_params, grads[:n], self.opt_state, cfg.lr, scale,
+                    cfg.weight_decay)
+        self._core_apply(cores, grads[n:], scale)
+        return loss, acc
+
+    def _share(self, loss: torch.Tensor) -> torch.Tensor:
+        """The loss the backward starts from: the step's, or under ``--dist``
+        this rank's share of the global mean."""
+        return loss if self.dp is None else self.dp.share(loss)
+
+    def _count_other_rows(self, seeds: torch.Tensor, layers: List[torch.Tensor]) -> None:
+        """``--dist``: count the other ranks' rows of the batch into the
+        counters that the step's forward counts its own rows into
+        (``--access-counts`` without TT, the puregpu cache's), so that they
+        hold the whole batch's counts, as JAX's replicated collection does."""
+        emb = self.model.embed
+        if isinstance(emb, AccessCountingEmbedding):
+            counts = emb.counts
+        elif getattr(emb, "device_freq", False):
+            counts = emb.cache_freq
+        else:
+            return
+        ids = collect_level_ids(*self.dp.other_rows(seeds, layers))[0].long()
+        counts.index_add_(0, ids, torch.ones_like(ids, dtype=counts.dtype))
 
     def _routed_update(self, logits: torch.Tensor,
                        labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -435,9 +508,12 @@ class SageTrainer:
         core optimizer, the cache group; all times the plateau scale."""
         cfg = self.cfg
         loss = F.cross_entropy(logits, labels)
+        acc = (logits.detach().argmax(-1) == labels).float().mean()
         routed = self.cores if self.routed_cores else []
         cache = [] if self.cache_weight is None else [self.cache_weight]
-        grads = torch.autograd.grad(loss, [*self.opt_params, *routed, *cache])
+        grads = torch.autograd.grad(self._share(loss), [*self.opt_params, *routed, *cache])
+        if self.dp is not None:
+            loss, acc, grads = self.dp.all_reduce(loss, acc, grads)
         n, m = len(self.opt_params), len(self.opt_params) + len(routed)
         grads, core_grads, cache_grads = grads[:n], grads[n:m], grads[m:]
         scale = self._plateau_scale(loss)
@@ -448,7 +524,6 @@ class SageTrainer:
                         cfg.lr, scale)
         if self.cache_weight is not None:
             cache_update(self.cache_weight, cache_grads[0], self.cache_opt, scale)
-        acc = (logits.detach().argmax(-1) == labels).float().mean()
         return loss.detach(), acc
 
     def full_neighbor_step(self, seeds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -477,11 +552,8 @@ class SageTrainer:
         ``trainer.py:673-707``); ``order`` is the step's sort of ``ids``."""
         cfg = self.cfg
         if cfg.tt_optimizer == "adam":
-            self.tt_opt.count += 1
-            bc1, bc2 = bias_corrections(self.tt_opt.count)
-            scal = torch.stack([cfg.lr * scale, 1.0 / bc1, 1.0 / bc2])
             tt_fused_adam(self.shapes, cores, self.tt_opt.m, self.tt_opt.v, ids, d_h,
-                          scal, ADAM_B1, ADAM_B2, ADAM_EPS, order=order)
+                          self._adam_scal(scale), ADAM_B1, ADAM_B2, ADAM_EPS, order=order)
         elif cfg.tt_optimizer == "sgd":
             tt_fused_sgd(self.shapes, cores, ids, d_h, cfg.lr, order=order)
         else:
@@ -490,6 +562,27 @@ class SageTrainer:
                              ROWWISE_ADAGRAD_EPS if rowwise else ADAGRAD_EPS, rowwise,
                              order=order)
 
+    def _core_apply(self, cores, grads, scale) -> None:
+        """``--dist``: the update of :meth:`_fused_core_update` from the
+        all-reduced core gradients."""
+        cfg = self.cfg
+        if cfg.tt_optimizer == "adam":
+            tt_adam_apply(cores, self.tt_opt.m, self.tt_opt.v, grads, self._adam_scal(scale),
+                          ADAM_B1, ADAM_B2, ADAM_EPS)
+        elif cfg.tt_optimizer == "sgd":
+            tt_sgd_apply(cores, grads, cfg.lr)
+        else:
+            rowwise = cfg.tt_optimizer == "rowwise_adagrad"
+            tt_adagrad_apply(cores, self.tt_acc, grads, cfg.lr,
+                             ROWWISE_ADAGRAD_EPS if rowwise else ADAGRAD_EPS, rowwise)
+
+    def _adam_scal(self, scale: torch.Tensor) -> torch.Tensor:
+        """The fused Adam's step count, advanced, and its
+        ``[lr * plateau_scale, 1/(1-b1^t), 1/(1-b2^t)]`` on the device."""
+        self.tt_opt.count += 1
+        bc1, bc2 = bias_corrections(self.tt_opt.count)
+        return torch.stack([self.cfg.lr * scale, 1.0 / bc1, 1.0 / bc2])
+
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         cfg = self.cfg
         self.dropout_gen.manual_seed(cfg.seed + 1000 + epoch)
@@ -497,12 +590,57 @@ class SageTrainer:
             return self._train_epoch_full_neighbor(epoch)
         if cfg.mode == "puregpu":
             return self._train_epoch_device(epoch)
+        if cfg.steps_per_call > 1:
+            return self._train_epoch_grouped(epoch)
         meter = _EpochMeter(self, epoch)
         for it, batch in enumerate(self.loader):
             loss, acc = self.train_step(batch.seeds, batch.layers, batch.labels)
             self.step += 1
             meter.record(loss, acc, cfg.batch_size,
                          log_now=(it + 1) % cfg.log_every == 0)
+        return meter.summary()
+
+    def _grouped_batches(self):
+        """Yield lists of S batches (cycling into the epoch start to fill
+        the final ragged group, mirroring the loader's tail-wrap)."""
+        S = self.cfg.steps_per_call
+        group: List = []
+        first: List = []
+        for batch in self.loader:
+            group.append(batch)
+            if len(first) < S:
+                first.append(batch)
+            if len(group) == S:
+                yield group
+                group = []
+        if group:
+            i = 0
+            while len(group) < S:
+                group.append(first[i % len(first)])
+                i += 1
+            yield group
+
+    def _train_epoch_grouped(self, epoch: int) -> Dict[str, float]:
+        """``--mode mixed`` with ``steps_per_call`` S > 1 (JAX
+        ``_train_epoch_multi``, ``trainer.py:923-967``): the loader's batches
+        in groups of S (:meth:`_grouped_batches`), one step a batch, so that
+        an epoch of nb batches is ceil(nb / S) * S steps; each group records
+        its mean loss and accuracy, logged on JAX's cadence (its last group
+        never, as JAX flushes it unlogged)."""
+        cfg = self.cfg
+        S = cfg.steps_per_call
+        n_groups = -(-len(self.loader) // S)
+        meter = _EpochMeter(self, epoch)
+        for g, group in enumerate(self._grouped_batches()):
+            losses, accs = [], []
+            for b in group:
+                loss, acc = self.train_step(b.seeds, b.layers, b.labels)
+                losses.append(loss)
+                accs.append(acc)
+            gi = self.step // S
+            self.step += S
+            meter.record(torch.stack(losses).mean(), torch.stack(accs).mean(), S * cfg.batch_size,
+                         log_now=g < n_groups - 1 and (gi + 1) * S % cfg.log_every < S)
         return meter.summary()
 
     def _train_epoch_device(self, epoch: int) -> Dict[str, float]:
@@ -779,7 +917,9 @@ class SageTrainer:
                 self.maybe_populate_cache()
             if not cfg.skip_eval and (
                     (epoch + 1) % cfg.eval_every == 0 or epoch == epochs - 1):
-                stats.update(self.evaluate())
+                # --dist: rank 0 evaluates, every rank gets its accuracies
+                stats.update(self.evaluate() if self.dp is None
+                             else self.dp.from_rank0(self.evaluate, EVAL_KEYS))
                 if stats["val_acc"] >= best["val_acc"]:
                     best = {"val_acc": stats["val_acc"],
                             "test_acc": stats["test_acc"], "epoch": epoch}

@@ -1205,3 +1205,46 @@ def test_segment_mean_bf16_kernel_bit_identical(cuda, d):
     with torch.no_grad():
         out = segment.spmm_mean(h, src, dst, n)
     assert out.dtype == torch.bfloat16 and segment.launch_counts()["segment_mean_bf16"] == 1
+
+
+# ----------------------------------------------------------------- --dist
+def test_dp_step_over_one_nccl_rank_matches_single_device(cuda, tmp_path):
+    """--dist --mode puregpu --sparse --bf16 through a one-rank NCCL group,
+    given to the trainer so that it takes the data-parallel step (tt_grads,
+    the all-reduce, then tt_adam_apply; 4 launches each in an epoch of 4
+    steps), against the single-device step (tt_grads and tt_adam_apply in
+    one call).  As chip_smoke.py's checkpoint phase holds two card runs:
+    the single-device trainer's state after an epoch restored into the
+    data-parallel one, then the next epoch on both, held at the
+    card-vs-card margins of its bf16 checks, since tt_grads' atomics
+    reorder its sums (losses within 2e-3 relative; every parameter's share
+    more than 0.1 lr apart at most 5%, none past 6 lr)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from falcon_ttdforgnns_torch.parallel import init_process_group
+    from falcon_ttdforgnns_torch.train import SageTrainer
+    kw = dict(mode="puregpu", sparse=True, bf16=True, steps_per_call=2, dist=True,
+              dropout=0.0, lr=0.003)
+    init_process_group("cuda", "file://" + str(tmp_path / "store"), 0, 1, local_rank=0)
+    try:
+        one = tiny_trainer(**kw)
+        assert one.dp is None  # world size 1: the single-device path, as in JAX
+        dp = SageTrainer(one.ds, one.cfg, device=cuda, group=dist.group.WORLD)
+        for tr in (one, dp):
+            tr.ds = dataclasses.replace(tr.ds, train_idx=tr.ds.train_idx[:256])
+            tt_kernels.reset_launch_counts()
+            tr.train_epoch(0)
+            assert {k: v for k, v in tt_kernels.launch_counts().items() if v} == dict.fromkeys(
+                ("tt_fwd[bf16]", "tt_grads[bf16]", "tt_adam_apply"), 4)
+        assert dp.dp.reduced_bytes == 4 * (sum(p.numel() for p in dp.model.parameters()) + 2)
+        dp.restore(one.save(str(tmp_path / "ck")))
+        losses = [tr.train_epoch(1)["loss"] for tr in (one, dp)]
+    finally:
+        dist.destroy_process_group()
+    assert losses[1] == pytest.approx(losses[0], rel=2e-3)
+    for a, b in zip(dp.model.parameters(), one.model.parameters()):
+        off = (a - b).detach().abs()
+        assert float((off > 0.1 * 0.003).float().mean()) <= 0.05
+        assert float(off.max()) <= 3 * 2 * 0.003 + 1e-6

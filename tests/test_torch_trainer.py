@@ -9,8 +9,10 @@ versions) and without it (each routed core optimizer), in f32 and with the
 bf16 tower.  Then evaluate() on the same weights.  ``--mode puregpu``:
 the step on device-sampled layers against the mixed step and the JAX step
 body on the same layers, and the epoch's seeds and labels against the JAX
-trainer's.  Also: the plateau's auto-off under bf16, the CLI on the CPU,
-the device rule, and that the port never imports JAX.
+trainer's.  ``--mode mixed`` with ``steps_per_call`` > 1: the epoch's
+groups of loader batches against JAX's, step for step.  Also: the
+plateau's auto-off under bf16, the CLI on the CPU, the device rule, and
+that the port never imports JAX.
 """
 
 import ast
@@ -220,12 +222,13 @@ def test_fit_runs_and_reports(datasets):
     assert 0.0 <= res["best"]["test_acc"] <= 1.0
 
 
-@pytest.mark.parametrize("kw", [dict(dist=True), dict(dist=True, eval_sampled=True),
+@pytest.mark.parametrize("kw", [dict(dist=True, node_shard=True),
+                                dict(dist=True, node_shard=True, eval_sampled=True),
                                 dict(node_shard=True)])
 def test_unported_options_raise(datasets, kw):
-    """The multi-device options (ROADMAP A8) raise, also beside
-    --eval-sampled, which runs on one device since it was ported."""
-    with pytest.raises(NotImplementedError):
+    """--node-shard (ROADMAP A8.3) raises, alone and beside --dist, which
+    runs since ROADMAP A8.2, and --eval-sampled."""
+    with pytest.raises(NotImplementedError, match="A8.3"):
         SageTrainer(datasets[0], TrainConfig(**{**TINY, **kw}), device="cpu")
 
 
@@ -417,6 +420,56 @@ def test_puregpu_epoch_seeds_and_labels_match_jax(datasets, steps_per_call):
     for (seeds, labels), w in zip(seen, want):
         np.testing.assert_array_equal(seeds, w[:, 0])
         np.testing.assert_array_equal(labels, w[:, 1])
+    assert np.isfinite(stats["loss"])
+
+
+@pytest.mark.parametrize("sparse", [True, False], ids=["sparse", "dense"])
+@pytest.mark.parametrize("steps_per_call", [1, 2, 8])
+def test_mixed_epoch_groups_match_jax(datasets, steps_per_call, sparse):
+    """ROADMAP C4: the mixed epoch's batches (seeds, layers, labels), step
+    for step, are the JAX trainer's, recorded at its _multi_fn (at S = 1 its
+    _step_fn), which is not run, on 300 train ids at batch 64: 4 loader
+    batches, so that at S = 8 the one group is ragged and cycles through the
+    epoch's first batches; the step count is ceil(4 / S) * S."""
+    ds, jds = datasets
+    ds = dataclasses.replace(ds, train_idx=ds.train_idx[:300])
+    jds = dataclasses.replace(jds, train_idx=jds.train_idx[:300])
+    kw = dict(TINY, steps_per_call=steps_per_call, sparse=sparse)
+    jtr = JaxTrainer(jds, JaxConfig(**kw))
+    want = []
+
+    def record_step(variables, opt_state, seeds, layers, labels, rng):
+        want.append((np.asarray(seeds), [np.asarray(l) for l in layers], np.asarray(labels)))
+        return variables, opt_state, jnp.float32(0), jnp.float32(0)
+
+    def record_group(variables, opt_state, packed, rng):
+        widths = np.cumsum([0] + jtr._layer_widths()) + 2
+        for row in np.asarray(packed):
+            want.append((row[:, 0], [row[:, a:b] for a, b in zip(widths[:-1], widths[1:])],
+                         row[:, 1]))
+        return variables, opt_state, jnp.float32(0), jnp.float32(0)
+
+    if steps_per_call == 1:
+        jtr._step_fn = record_step
+    else:
+        jtr._multi_fn = record_group
+    jtr.train_epoch(0)
+    tr = SageTrainer(ds, TrainConfig(**kw), device="cpu")
+    args = []
+    inner = tr.train_step
+
+    def keep(seeds, layers, labels):
+        args.append((seeds, layers, labels))
+        return inner(seeds, layers, labels)
+
+    tr.train_step = keep
+    stats = tr.train_epoch(0)
+    assert len(args) == len(want) == tr.step == -(-4 // steps_per_call) * steps_per_call
+    for (seeds, layers, labels), (ws, wl, wy) in zip(args, want):
+        np.testing.assert_array_equal(seeds, ws)
+        np.testing.assert_array_equal(labels, wy)
+        for a, b in zip(layers, wl, strict=True):
+            np.testing.assert_array_equal(a, b)
     assert np.isfinite(stats["loss"])
 
 

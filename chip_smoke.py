@@ -144,8 +144,29 @@ falcon_ttdforgnns_torch.cli --dist --multihost --mode puregpu --sparse
 (rc 0, its log naming the nccl group of world size 1, its trace both TT
 kernels), and beside it graft_entry's entry() and dryrun_multichip(1).
 
+Since --node-shard (ROADMAP A8.3), after --full-neighbor at products: a
+one-rank NCCL group given to a --full-neighbor --node-shard trainer of
+the flagship's widths (f32, routed Adam, dropout 0), so that it takes the
+node-sharded step (a 1 x 1 mesh: its ragged layout's host seconds, chunk
+and memory ratio; tt_fwd and tt_grads once a step over all 2,449,029 rows
+of the one block, in balanced row order): the first batch's loss and
+gradients without an update against the full-graph forward's (loss
+within 1e-5, every gradient within 1e-3 of its norm); 3 steps
+counted against 3 --full-neighbor steps from the same state, dropout 0,
+and a second full-neighbor run beside them (losses within 1e-4;
+parameters at hold_params' card-vs-card margin, since Adam's first steps
+carry a near-cancelled element's reordering error whole; ms a step and
+peak memory); infer_full_sharded against infer_full (logits
+within 1e-4, accuracies within SPMM_ROUTE_ACC, evaluate()'s ms both ways);
+the ring's index_add_ and index_select ms at D = 256 (CUDA events); then the
+ragged layout at LOGICAL_SHARDS = 4 shards consumed in one process, each
+shard given at each rotation the block that rotation delivers, through
+the ring's own consume and its transpose: equal, bit for bit on
+integer-valued rows, to the plain full-graph sum and its transpose.
+
 The steps run in the order 1, 2, 5, step 6's flagship phases (the main
-path, --sampler table, --dist and C4), 6 (e) and (f), then 4, 6 (g) and the
+path, --sampler table, --dist and C4), 6 (e) and (f) with --node-shard,
+then 4, 6 (g) and the
 flagship's checkpoint beside the orderings, 6 (a)-(c) with final-p's
 checkpoint, the tools and models above, 3 in a process of its own (after
 the main path's profile, see main()), the rest of 6, 7, 8, the torchrun
@@ -213,6 +234,8 @@ STEPS_FULL_NEIGHBOR = 3    # --full-neighbor steps at products
 CKPT_STEPS = 5             # steps before a save and after a restore
 FINAL_P_GROUP = 8          # final-p's --steps-per-call (the preset's): 40 warmup batches, 5 groups
 C4_BATCHES = 3             # loader batches of C4's cut mixed epoch: one ragged group of 8 steps
+STEPS_NODE_SHARD = 3       # --full-neighbor --node-shard steps at products, and as many without
+LOGICAL_SHARDS = 4         # the ragged layout's shards consumed in one process
 TT_SOURCE = "falcon_ttdforgnns_torch/csrc/tt_kernels.cu"
 SPMM_SOURCE = "falcon_ttdforgnns_torch/csrc/spmm_kernels.cu"
 TOWER_SOURCE = "falcon_ttdforgnns_torch/csrc/tower_kernels.cu"
@@ -2393,6 +2416,195 @@ def full_neighbor_phase(ds, config, K, dev, counts) -> None:
     torch.cuda.empty_cache()
 
 
+def node_shard_phase(ds, config, dev, counts) -> None:
+    """--full-neighbor --node-shard (ROADMAP A8.3) on the card over a
+    one-rank NCCL group (a file store in a temporary directory) given to
+    the trainer, so that it takes the node-sharded step (see the module's
+    docstring), against --full-neighbor from the same state; then the
+    sharded inference against infer_full, the ring's index_add_ (CUDA
+    events) and logical_shards_check.  Fills counts["node-shard"]."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from falcon_ttdforgnns_torch.parallel import (destroy_process_group, init_process_group,
+                                                  ring_spmm)
+    from falcon_ttdforgnns_torch.train import SageTrainer
+    S = STEPS_NODE_SHARD
+    cfg = config(use_sample=False, node_shard=True, dropout=0.0)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process_group("cuda", f"file://{tmp}/store", 0, 1,
+                           local_rank=torch.cuda.current_device())
+        try:
+            ns = SageTrainer(cut(ds, S), cfg, device=dev, group=dist.group.WORLD)
+            one = SageTrainer(cut(ds, S), cfg, device=dev)  # no group: the single-device path
+            mesh, lay = ns.node_mesh, ns.nshard.layout
+            rows = ns.nshard.node_ids.numel()
+            log(f"  a node mesh of {mesh.n_data} x {mesh.n_node} over {dist.get_backend()}; the "
+                f"ragged layout: {ns.nshard_layout_s:.1f} s on the host, chunk {lay.chunk}, "
+                f"max_chunks {lay.max_chunks}, memory ratio {lay.memory_ratio:.4f}, a block of "
+                f"{rows} rows; without the group: {one.node_mesh}")
+            if (mesh.n_data, mesh.n_node) != (1, 1) or one.node_mesh is not None or \
+                    rows != ds.num_nodes:
+                raise AssertionError("node-shard: a 1 x 1 mesh over all rows given the group, "
+                                     "the single-device path without it")
+            two = SageTrainer(cut(ds, S), cfg, device=dev)
+            for tr in (one, two):
+                tr.model.load_state_dict(ns.model.state_dict())
+                tr._eval_graph()  # the edge list on the card before the timed steps
+            # the identity: the first batch's loss and gradients, no update
+            pick = np.random.default_rng(cfg.seed).permutation(ns.ds.train_idx)[:cfg.batch_size]
+            loss_ns, _, grads_ns = ns.node_sharded_grads(pick)
+            src, dst, deg, labels, *_ = one._eval_graph()
+            seeds = torch.as_tensor(pick.astype(np.int64), device=dev)
+            logits = one.model.forward_full_graph(src, dst, deg, chunk=cfg.edge_chunk)
+            loss_one = torch.nn.functional.cross_entropy(logits.index_select(0, seeds),
+                                                         labels.index_select(0, seeds))
+            grads_one = torch.autograd.grad(loss_one, one._trained())
+            loss_one = loss_one.detach()
+            names = {id(p): n for n, p in one.model.named_parameters()}
+            rel, worst = max((float((a - b).norm() / b.norm()), names[id(p)])
+                             for a, b, p in zip(grads_ns, grads_one, one._trained()))
+            log(f"  the first batch, no update: loss {float(loss_ns):.7f} node-sharded against "
+                f"{float(loss_one):.7f}; every gradient within {rel:.2e} of its norm (the "
+                f"farthest {worst})")
+            del logits, grads_ns, grads_one
+            # the weight gradients are f32 sums over 2.45M rows, in another
+            # order on each path: ~eps sqrt(N) = 9e-5 relative
+            if rel > 1e-3 or not math.isclose(float(loss_ns), float(loss_one), rel_tol=1e-5):
+                raise AssertionError("node-shard: the first batch's loss or gradients differ "
+                                     "from the full-neighbor step's")
+            run = {}
+            for tr, label in ((ns, "node-sharded"), (one, "full-neighbor"),
+                              (two, "full-neighbor again")):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                stats = tr.train_epoch(0)
+                got = checked_counts(label, ("tt_fwd", "tt_grads"), S)
+                if (got.get("tt_fwd"), got.get("tt_grads"), tr.step) != (S, S, S):
+                    raise AssertionError(f"{label}: {tr.step} steps, launches {got}: one "
+                                         f"tt_fwd and one tt_grads a step expected")
+                run[label] = (stats, torch.cuda.max_memory_allocated(), got)
+            counts["node-shard"] = run["node-sharded"][2]
+            (sn, pn, _), (sf, pf, _) = run["node-sharded"], run["full-neighbor"]
+            log(f"  {S} steps each from the same state, dropout 0: node-sharded "
+                f"{sn['epoch_time'] * 1e3 / S:.1f} ms a step, peak {pn / 2**30:.2f} GiB, loss "
+                f"{sn['loss']:.6f}; --full-neighbor {sf['epoch_time'] * 1e3 / S:.1f} ms a step, "
+                f"peak {pf / 2**30:.2f} GiB, loss {sf['loss']:.6f}; again "
+                f"{run['full-neighbor again'][0]['epoch_time'] * 1e3 / S:.1f} ms a step")
+            hold_loss(dict(node_shard="epoch 0"), S, sn["loss"], sf["loss"], False)
+            for other, what in ((ns, "node-sharded"), (two, "a second full-neighbor run")):
+                offs = [(a.detach() - b.detach()).abs()
+                        for a, b in zip(other.model.parameters(), one.model.parameters())]
+                log(f"  {what} against the first full-neighbor run after {S} Adam steps: "
+                    f"shares of elements more than 3e-3 lr / 0.1 lr apart "
+                    f"{sum(int((o > 3e-3 * LR).sum()) for o in offs) / sum(o.numel() for o in offs):.4f}"
+                    f" / {sum(int((o > 0.1 * LR).sum()) for o in offs) / sum(o.numel() for o in offs):.4f},"
+                    f" max {max(float(o.max()) for o in offs):.3e}")
+            # Adam's first steps carry a near-cancelled gradient element's
+            # reordering error whole (about lr * sign(g)): the card-vs-card
+            # margin of dist_phase and the checkpoint phases
+            hold_params(dict(node_shard="one NCCL rank"), ns, one, True, steps=S,
+                        where="products")
+            del two
+            # inference and evaluate of one state, each route's second call timed
+            one.model.load_state_dict(ns.model.state_dict())
+            ms = {}
+            for tr in (ns, one):
+                logits = tr.infer_full()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = tr.infer_full()
+                torch.cuda.synchronize()
+                infer_ms = (time.perf_counter() - t0) * 1e3
+                tr.evaluate()
+                t0 = time.perf_counter()
+                accs = tr.evaluate()
+                ms[tr] = (logits, infer_ms, (time.perf_counter() - t0) * 1e3, accs)
+            (sharded, si, se, sa), (full, fi, fe, fa) = ms[ns], ms[one]
+            err = float((sharded - full).abs().max())
+            flips = int((sharded.argmax(-1) != full.argmax(-1)).sum())
+            log(f"  infer_full_sharded against infer_full: max abs diff {err:.3e} (logits up to "
+                f"{float(full.abs().max()):.3e}), {flips} argmax flips of {full.shape[0]}; "
+                f"{si:.0f} against {fi:.0f} ms; evaluate() {se:.0f} (sharded) against {fe:.0f} "
+                f"ms (xla), {sa} against {fa}")
+            torch.testing.assert_close(sharded, full, rtol=1e-4, atol=1e-4)
+            if any(abs(sa[k] - fa[k]) > SPMM_ROUTE_ACC for k in fa):
+                raise AssertionError(f"node-shard evaluate {sa} against xla {fa}")
+            del sharded, full, logits, ms
+            h = torch.randn((rows, 256), device=dev)
+            pieces = ns.nshard.shard.buckets[0]
+
+            def gathers():
+                for src_piece, _, _ in pieces:
+                    h.index_select(0, src_piece)
+
+            ring_ms = cuda_ms(lambda: ring_spmm(h, ns.nshard.shard, mesh), 3)
+            gather_ms = cuda_ms(gathers, 3)
+            log(f"  the ring at D = 256 over all edges (one block, no rotation, {len(pieces)} "
+                f"pieces), CUDA events: {ring_ms:.1f} ms a call, of which the pieces' "
+                f"index_select {gather_ms:.1f} ms and their index_add_ the rest, "
+                f"{ring_ms - gather_ms:.1f} ms")
+            del h
+        finally:
+            destroy_process_group()
+    del ns, one
+    torch.cuda.empty_cache()
+    logical_shards_check(ds, dev)
+
+
+def logical_shards_check(ds, dev) -> None:
+    """The ragged layout of the products graph at LOGICAL_SHARDS shards,
+    consumed in one process: for each shard and rotation, the block that
+    rotation delivers handed to the ring's consume (and the shard's rows
+    to consume_transposed, into the delivered block's rows), in the ring's
+    edge_chunk pieces, on 64 integer-valued columns, so that every sum is
+    exact in f32: the shards' rows must equal the plain full-graph sum
+    (and its transpose) bit for bit.  The only way one card runs a
+    4-shard layout's slices."""
+    import torch
+    from falcon_ttdforgnns_torch.ops.segment import spmm_sum_chunked
+    from falcon_ttdforgnns_torch.parallel import (consume, consume_transposed,
+                                                  partition_edges_ragged, ragged_shard)
+    S, n = LOGICAL_SHARDS, ds.num_nodes
+    src, dst = ds.graph.to_coo()
+    t0 = time.perf_counter()
+    lay = partition_edges_ragged(src.astype(np.int64), dst.astype(np.int64), n, S)
+    host_s = time.perf_counter() - t0
+    top = int(max(ds.graph.degrees.max(), np.bincount(src, minlength=n).max()))
+    if 8 * top >= 2 ** 24:
+        raise AssertionError(f"a degree of {top}: integer sums past f32's exact range")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h = torch.randint(-8, 9, (lay.num_rows_padded, 64), generator=gen, device=dev).float()
+    out, back = torch.zeros_like(h), torch.zeros_like(h)
+    blocks, b = h.split(lay.block), lay.block
+    t0 = time.perf_counter()
+    for d in range(S):
+        shard = ragged_shard(lay, d, dev)
+        for i in range(S):
+            k = (d + i) % S
+            consume(out[d * b:(d + 1) * b], blocks[k], shard.buckets[i])
+            consume_transposed(back[k * b:(k + 1) * b], blocks[d], shard.buckets[i])
+        del shard
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    row_of = torch.as_tensor(lay.row_of, device=dev)
+    nodes = h.index_select(0, row_of)
+    s, t = (torch.as_tensor(a.astype(np.int64), device=dev) for a in (src, dst))
+    same = (torch.equal(out.index_select(0, row_of), spmm_sum_chunked(nodes, s, t, n)),
+            torch.equal(back.index_select(0, row_of), spmm_sum_chunked(nodes, t, s, n)))
+    log(f"  {S} logical shards of products in one process: the layout {host_s:.1f} s on the "
+        f"host (chunk {lay.chunk}, max_chunks {lay.max_chunks}, memory ratio "
+        f"{lay.memory_ratio:.4f}, per-shard real edges {lay.nreal.sum(axis=1).tolist()}); "
+        f"the {S * S} consumes and their transposes {dev_s:.2f} s; equal to the plain sum and "
+        f"its transpose bit for bit: {same}")
+    if not all(same):
+        raise AssertionError(f"the {S}-shard consume is off the plain sum: {same}")
+    del h, out, back, nodes, s, t
+    torch.cuda.empty_cache()
+
+
 CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints", "chip_smoke")
 
 
@@ -3064,6 +3276,8 @@ def main() -> int:
     log("--no-tt and --full-neighbor steps, card vs CPU on the tiny graph:")
     small_new_paths_check(dev)
     full_neighbor_phase(ds, config, K, dev, counts)
+    log("--full-neighbor --node-shard over one NCCL rank, against --full-neighbor:")
+    node_shard_phase(ds, config, dev, counts)
 
     # the two slow orderings start only after the phases whose host time is
     # read: --partition 128 in a thread (the native partitioner, one core),

@@ -24,8 +24,10 @@ inverse of its samples/s, then prints ``{"best_ranks": ..., "objective":
 ...}``.  :func:`main` parses the flags, loads and reorders the dataset
 (:func:`load_dataset`) and hands both to :func:`run`.
 
-``--dist`` trains data-parallel over a ``torch.distributed`` process group
-of one rank per card (``parallel/``), which :func:`main` sets up under
+``--dist`` trains data-parallel, and ``--node-shard`` shards the node space
+(with ``--dist --full-neighbor`` the hybrid data x node split), over a
+``torch.distributed`` process group of one rank per card (``parallel/``),
+which :func:`main` sets up under
 ``--multihost`` (``torchrun``'s environment, or JAX's
 ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``) or wherever
 a launcher's ``WORLD_SIZE`` is above 1, and tears down at the end:
@@ -183,18 +185,22 @@ def run(args, ds, logger):
             return trainer.fit()
 
     def after_fit(trainer, result):
-        # --dist: rank 0 writes, the others wait for it
+        # --dist: rank 0 writes, the others wait for it; the node-sharded
+        # inference is every rank's
+        pred = args.save_pred and not args.skip_eval and hasattr(trainer, "infer_full")
+        logits = (trainer.infer_full() if pred and (
+            rank() == 0 or getattr(trainer, "node_mesh", None) is not None) else None)
         if rank() == 0:
-            write_outputs(trainer, result)
+            write_outputs(trainer, result, logits)
         if world_size() > 1:
             torch.distributed.barrier()
         return result
 
-    def write_outputs(trainer, result):
+    def write_outputs(trainer, result, logits):
         logger.info(f"best: {result['best']}")
-        if args.save_pred and not args.skip_eval and hasattr(trainer, "infer_full"):
+        if logits is not None:
             # the per-node prediction dump (sage_dgl_partition.py:373-374)
-            logits = trainer.infer_full().float().cpu().numpy()
+            logits = logits.float().cpu().numpy()
             os.makedirs(args.ckpt_dir, exist_ok=True)
             np.savez(os.path.join(args.ckpt_dir, f"pred_{args.model}_{args.dataset}.npz"),
                      pred=logits.argmax(-1), logits=logits)

@@ -29,7 +29,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from .mesh import backend_for, rank, world_size
+from .mesh import check_backend, checked_world, rank, world_size
 
 
 def scaling_efficiency(edges_per_s: Dict[int, float]) -> Dict[int, float]:
@@ -51,10 +51,7 @@ class DataParallel:
         self.group = group
         self.device = torch.device(device)
         self.world, self.rank = world_size(group), rank(group)
-        backend = dist.get_backend(group)
-        if backend != backend_for(self.device):
-            raise ValueError(f"--dist on {self.device.type} needs a {backend_for(self.device)} "
-                             f"process group, got {backend}")
+        check_backend(group, self.device, "--dist")
         self.reduced_bytes = 0
 
     def rows(self, n: int) -> slice:
@@ -87,15 +84,10 @@ class DataParallel:
         loss) and its local mean loss and accuracy over W, in one all-reduce
         of one f32 buffer.  Returns the global loss, the global accuracy and
         the summed gradients, views of that buffer."""
-        stats = torch.stack([loss.detach().float(), acc.float()]) / self.world
-        flat = torch.cat([*(g.reshape(-1).float() for g in grads), stats])
-        dist.all_reduce(flat, group=self.group)
-        self.reduced_bytes = flat.numel() * flat.element_size()
-        out, off = [], 0
-        for g in grads:
-            out.append(flat[off:off + g.numel()].view(g.shape))
-            off += g.numel()
-        return flat[off], flat[off + 1], out
+        loss, acc, out = reduce_sums(loss.detach().float() / self.world,
+                                     acc.float() / self.world, grads, self.group)
+        self.reduced_bytes = 4 * (sum(g.numel() for g in grads) + 2)
+        return loss, acc, out
 
     def from_rank0(self, fn: Callable[[], Dict[str, float]], keys: Sequence[str]
                    ) -> Dict[str, float]:
@@ -111,6 +103,20 @@ class DataParallel:
         return dict(zip(keys, vals.tolist()))
 
 
+def reduce_sums(loss: torch.Tensor, acc: torch.Tensor, grads: Sequence[torch.Tensor],
+                group=None) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
+    """Sum every rank's ``grads``, ``loss`` and ``acc`` over ``group`` in
+    one all-reduce of one f32 buffer; returns the sums, views of it."""
+    stats = torch.stack([loss.detach().float(), acc.float()])
+    flat = torch.cat([*(g.reshape(-1).float() for g in grads), stats])
+    dist.all_reduce(flat, group=group)
+    out, off = [], 0
+    for g in grads:
+        out.append(flat[off:off + g.numel()].view(g.shape))
+        off += g.numel()
+    return flat[off], flat[off + 1], out
+
+
 def data_parallel_for(cfg, device, group=None) -> Optional[DataParallel]:
     """The data axis of a trainer of ``cfg`` on ``device``, or None for the
     single-device step.  As JAX takes its DP path only when
@@ -118,15 +124,14 @@ def data_parallel_for(cfg, device, group=None) -> Optional[DataParallel]:
     group of one rank (or none) is the single-device path; a ``group``
     given explicitly is taken at any size (one NCCL rank measures the
     step's all-reduce on one card).  ``--num-chips`` must be the world
-    size, and the batch must divide by it (``trainer.py:335-337``)."""
-    if not cfg.dist:
-        if group is not None:
-            raise ValueError("a process group is for --dist")
+    size, and the batch must divide by it (``trainer.py:335-337``).
+    ``--dist --full-neighbor --node-shard`` is the hybrid split of the
+    node mesh (``node_sharding.py``), not this path."""
+    if not (cfg.dist and cfg.use_sample):
+        if group is not None and not cfg.node_shard:
+            raise ValueError("a process group is for --dist or --node-shard")
         return None
-    n = world_size(group)
-    if cfg.num_chips > 0 and cfg.num_chips != n:
-        raise ValueError(f"--num-chips {cfg.num_chips} must be the process group's world "
-                         f"size ({n}): launch with --nproc-per-node {cfg.num_chips}")
+    n = checked_world(cfg.num_chips, group)
     if group is None and n == 1:
         return None
     if cfg.batch_size % n:

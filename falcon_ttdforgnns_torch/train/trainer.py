@@ -84,6 +84,21 @@ the all-reduce, then ``tt_adam_apply`` (or ``tt_sgd_apply`` or
 ``tt_adagrad_apply``).  The access counters (``--access-counts``, the
 puregpu cache's) count the whole batch on every rank.  Rank 0 alone logs;
 ``fit`` evaluates on rank 0 and broadcasts the accuracies.
+
+``--node-shard`` (JAX ``trainer.py:360-400, 1121-1159``) shards the node
+space over the node axis of a ``(data, node)`` mesh of the group
+(``parallel/node_sharding.py``), taken when the group has more than one
+rank (or is given explicitly); at world size 1 without a group it is the
+single-device path, as JAX's ``device_count() > 1`` decides.  Under
+``--full-neighbor`` each step is :meth:`node_sharded_step`: every rank
+looks up its block's rows through the TT lookup, aggregates each layer by
+the ring SpMM, takes the loss of the batch's seeds in its rows (under
+``--dist``, of its data group's slice of the batch: the hybrid data x node
+split) summed over the global batch size, and the gradients, the loss and
+the accuracy of every rank are summed in one all-reduce before the routed
+update.  There is no dropout on this path, as in JAX.  Evaluation and
+:meth:`infer_full` take the ring too (:meth:`infer_full_sharded`), for
+sampled training as well, whatever ``--spmm``; every rank evaluates.
 """
 
 from __future__ import annotations
@@ -110,6 +125,8 @@ from ..ops.tt_kernels import (grouped_order, tt_adagrad_apply, tt_adam_apply,
                               tt_fused_adagrad, tt_fused_adam, tt_fused_sgd, tt_fwd,
                               tt_fwd_sr, tt_grads, tt_sgd_apply)
 from ..parallel.data_parallel import data_parallel_for
+from ..parallel.mesh import rank
+from ..parallel.node_sharding import NodeSharding, node_mesh_for, partition_edges_ragged
 from ..utils import resolve_device
 from ..utils.metrics import access_percentages, throughput
 from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
@@ -183,10 +200,7 @@ class TrainConfig:
 
 
 def _check_supported(cfg: TrainConfig) -> None:
-    if cfg.node_shard:
-        raise NotImplementedError("--node-shard (ROADMAP A8.3: the ring SpMM, sharded "
-                                  "inference, the hybrid data x node mesh) is not ported yet")
-    if cfg.dist and not cfg.use_sample:
+    if cfg.dist and not cfg.use_sample and not cfg.node_shard:
         raise ValueError("--dist is a sampled-minibatch DP path; "
                          "full-neighbor training scales out via "
                          "--node-shard (optionally combined with "
@@ -291,9 +305,10 @@ class _EpochMeter:
 
 
 class SageTrainer:
-    """``group`` is ``--dist``'s process group (the default group without
-    one, whose world size decides as JAX's device count does); one given
-    explicitly takes the data-parallel step at any world size."""
+    """``group`` is the process group of ``--dist`` and ``--node-shard``
+    (the default group without one, whose world size decides as JAX's
+    device count does); one given explicitly takes their multi-rank path
+    at any world size."""
 
     def __init__(self, dataset: NodeDataset, config: TrainConfig, logger=None,
                  precomputed_cores=None, device="cuda", group=None):
@@ -302,7 +317,11 @@ class SageTrainer:
         self.ds, self.cfg = dataset, config
         self.device = resolve_device(device)
         self.dp = data_parallel_for(cfg, self.device, group)
-        quiet = self.dp is not None and self.dp.rank > 0  # rank 0 alone logs
+        self.node_mesh = node_mesh_for(cfg, self.device, group)
+        self.nshard: Optional[NodeSharding] = None
+        self.nshard_layout_s = None  # host seconds to build the layout
+        # rank 0 alone logs
+        quiet = (self.dp is not None or self.node_mesh is not None) and rank(group) > 0
         self.logger = logger = None if quiet else logger
         self._indptr_dev = self._indices_dev = self._table_dev = None
         if cfg.mode == "puregpu":
@@ -378,7 +397,9 @@ class SageTrainer:
         if cfg.mode == "puregpu" and cfg.cache_size > 0 and logger:
             logger.warning("--mode puregpu samples on the device; host LFU counts are "
                            "unavailable, so the cache populates from the counts of the step")
-        self._eval_args = None
+        self._eval_args = self._labels = None
+        if self.node_mesh is not None and not cfg.use_sample:
+            self._ensure_nshard_layout(self.node_mesh.n_node)  # JAX places it here
         self._spmms: Dict[str, FullGraphSpmm] = {}
         self._metrics: Dict[str, List[float]] = {"loss": [], "throughput": []}
         self.step = 0
@@ -397,7 +418,8 @@ class SageTrainer:
         if g.num_edges >= 2**31:
             raise NotImplementedError(
                 f"single-device graph placement needs < 2^31 edges, got {g.num_edges}; "
-                f"use host sampling (--mode mixed); the multi-chip paths are ROADMAP A8")
+                f"use host sampling (--mode mixed), or --full-neighbor --node-shard "
+                f"(block-local int32 edge indices)")
         self._indptr_dev = self._tensor(g.indptr.astype(np.int32, copy=False))
         self._indices_dev = self._tensor(g.indices.astype(np.int32, copy=False))
         if cfg.sampler == "table":
@@ -503,18 +525,30 @@ class SageTrainer:
     def _routed_update(self, logits: torch.Tensor,
                        labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The routed body's update from the step's logits (JAX
-        ``trainer.py:573-596``): autograd to every trained tensor, Adam on
-        the dense params (the cores too when they take Adam), the routed
-        core optimizer, the cache group; all times the plateau scale."""
-        cfg = self.cfg
+        ``trainer.py:573-596``): autograd to every trained tensor, then
+        :meth:`_apply_update`."""
         loss = F.cross_entropy(logits, labels)
         acc = (logits.detach().argmax(-1) == labels).float().mean()
-        routed = self.cores if self.routed_cores else []
-        cache = [] if self.cache_weight is None else [self.cache_weight]
-        grads = torch.autograd.grad(self._share(loss), [*self.opt_params, *routed, *cache])
+        grads = torch.autograd.grad(self._share(loss), self._trained())
         if self.dp is not None:
             loss, acc, grads = self.dp.all_reduce(loss, acc, grads)
-        n, m = len(self.opt_params), len(self.opt_params) + len(routed)
+        return self._apply_update(loss, acc, grads)
+
+    def _trained(self) -> List[torch.Tensor]:
+        """What the routed update trains: the Adam group, then the cores
+        when another optimizer takes them, then the cache rows."""
+        routed = self.cores if self.routed_cores else []
+        cache = [] if self.cache_weight is None else [self.cache_weight]
+        return [*self.opt_params, *routed, *cache]
+
+    def _apply_update(self, loss: torch.Tensor, acc: torch.Tensor,
+                      grads: List[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Adam on the dense params (the cores too when they take Adam), the
+        routed core optimizer, the cache group, all times the plateau
+        scale of ``loss``, from the gradients of :meth:`_trained`."""
+        cfg = self.cfg
+        n = len(self.opt_params)
+        m = n + (len(self.cores) if self.routed_cores else 0)
         grads, core_grads, cache_grads = grads[:n], grads[n:m], grads[m:]
         scale = self._plateau_scale(loss)
         adam_update(self.opt_params, grads, self.opt_state, cfg.lr, scale,
@@ -537,6 +571,28 @@ class SageTrainer:
                                                generator=self.dropout_gen)
         return self._routed_update(logits.index_select(0, seeds),
                                    labels.index_select(0, seeds))
+
+    def node_sharded_step(self, pick: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One node-sharded ``--full-neighbor`` step (JAX
+        ``make_node_sharded_full_step``) on the batch of node ids ``pick``
+        (host), every rank of the group at once: :meth:`node_sharded_grads`,
+        then the routed update.  Returns the global loss and accuracy."""
+        return self._apply_update(*self.node_sharded_grads(pick))
+
+    def node_sharded_grads(self, pick: np.ndarray):
+        """The node-sharded step's global loss, accuracy and gradients of
+        :meth:`_trained` on the batch ``pick``: the TT lookup of this rank's
+        rows, the layers over the ring (no dropout, as in JAX), the loss of
+        its seeds summed over the global batch size, the backward (the
+        transposed rings carry each rank's share home), and one all-reduce
+        of every rank's gradients, loss and accuracy."""
+        ns = self.nshard
+        rows, labels = ns.local_seeds(ns.layout.row_of[pick], self.ds.labels[pick])
+        h = ns.propagate(self.model.materialize_features(ns.node_ids), self.model.apply_conv,
+                         self.cfg.num_layers)
+        loss, acc = ns.loss_shares(h.index_select(0, rows), labels, len(pick))
+        grads = torch.autograd.grad(loss, self._trained())
+        return ns.all_reduce(loss, acc, grads)
 
     def _sr_seed(self) -> torch.Tensor:
         """The SR store's seed for this step, drawn on the device (no host
@@ -678,30 +734,63 @@ class SageTrainer:
         """``--full-neighbor`` (JAX ``_train_epoch_full_neighbor``): the
         epoch's order of the train ids, ``default_rng(seed + 31 * epoch)``,
         cut into ``max(1, len // batch_size)`` batches, each wrapped to full
-        size around the order, one :meth:`full_neighbor_step` each."""
+        size around the order, one :meth:`full_neighbor_step` each, or
+        :meth:`node_sharded_step` under ``--node-shard``."""
         cfg = self.cfg
         B = cfg.batch_size
         order = np.random.default_rng(cfg.seed + 31 * epoch).permutation(self.ds.train_idx)
         meter = _EpochMeter(self, epoch)
         for b in range(max(1, len(order) // B)):
             pick = _wrap_full(order[b * B:(b + 1) * B], order, B)
-            loss, acc = self.full_neighbor_step(self._tensor(pick.astype(np.int64)))
+            if self.nshard is not None:
+                loss, acc = self.node_sharded_step(pick)
+            else:
+                loss, acc = self.full_neighbor_step(self._tensor(pick.astype(np.int64)))
             self.step += 1
             meter.record(loss, acc, B, log_now=(b + 1) % cfg.log_every == 0)
         return meter.summary()
 
     # ------------------------------------------------------------------
-    def _eval_graph(self):
-        """The COO graph, degrees, labels and splits on the device (moved
-        once)."""
-        if self._eval_args is None:
+    def _eval_labels(self):
+        """The labels and the three splits on the device (moved once)."""
+        if self._labels is None:
             ds = self.ds
-            src, dst = ds.graph.to_coo()
+            self._labels = tuple(self._tensor(a) for a in (
+                ds.labels.astype(np.int64), ds.train_idx, ds.val_idx, ds.test_idx))
+        return self._labels
+
+    def _eval_graph(self):
+        """The COO graph and degrees, then :meth:`_eval_labels`, on the
+        device (moved once)."""
+        if self._eval_args is None:
+            src, dst = self.ds.graph.to_coo()
             self._eval_args = tuple(self._tensor(a) for a in (
                 src.astype(np.int64), dst.astype(np.int64),
-                ds.graph.degrees.astype(np.float32), ds.labels.astype(np.int64),
-                ds.train_idx, ds.val_idx, ds.test_idx))
+                self.ds.graph.degrees.astype(np.float32))) + self._eval_labels()
         return self._eval_args
+
+    def _ensure_nshard_layout(self, n_ring: int) -> NodeSharding:
+        """Build (once) the ragged node-sharded layout of the graph for a
+        ring of ``n_ring`` shards and this rank's part of it on the device
+        (JAX ``_ensure_nshard_layout``), shared by training and the sharded
+        inference, so that the two can never disagree on it."""
+        if self.nshard is not None:
+            if self.nshard.layout.num_shards != n_ring:
+                raise ValueError(
+                    f"cached node-shard layout was built for "
+                    f"{self.nshard.layout.num_shards} shards, requested {n_ring} — "
+                    f"training placement and sharded inference must agree "
+                    f"on the ring width")
+            return self.nshard
+        g = self.ds.graph
+        t0 = time.perf_counter()
+        src, dst = g.to_coo()
+        lay = partition_edges_ragged(src.astype(np.int64), dst.astype(np.int64),
+                                     g.num_nodes, n_ring)
+        self.nshard_layout_s = time.perf_counter() - t0
+        self.nshard = NodeSharding(self.node_mesh, lay, g.degrees, self.device,
+                                   self.cfg.edge_chunk)
+        return self.nshard
 
     def full_graph_spmm(self, route: str) -> "FullGraphSpmm":
         """The full-graph sum of ``route`` ("pallas" or "blocked"), its host
@@ -771,33 +860,57 @@ class SageTrainer:
         """Split accuracies by full-graph propagation over every edge through
         the ``--spmm`` route (on the CPU the kernels' plain versions); three
         scalars come back to the host.  ``--eval-sampled`` takes
-        :meth:`evaluate_sampled` instead."""
+        :meth:`evaluate_sampled` instead, and ``--node-shard`` over ranks
+        :meth:`infer_full_sharded` (every rank of the group calls it)."""
         if self.cfg.eval_sampled:
             return self.evaluate_sampled()
-        src, dst, deg, labels, *splits = self._eval_graph()
+        if self.node_mesh is not None:
+            return self._accuracies(self.infer_full_sharded())
+        src, dst, deg, *_ = self._eval_graph()
         if self.cfg.spmm == "xla":
             logits = self.model.forward_full_graph(src, dst, deg, train=False,
                                                    chunk=self.cfg.edge_chunk)
         else:
             logits = self._layerwise(self.model.materialize_features(torch.arange(
                 self.ds.num_nodes, dtype=torch.int32, device=self.device)), self.cfg.spmm)
+        return self._accuracies(logits)
+
+    def _accuracies(self, logits: torch.Tensor) -> Dict[str, float]:
+        """The three splits' accuracies of every node's ``logits``."""
+        labels, *splits = self._eval_labels()
         pred = logits.argmax(-1)
         accs = torch.stack([(pred[i] == labels[i]).float().mean() for i in splits])
-        tr_a, va_a, te_a = accs.tolist()
-        return {"train_acc": tr_a, "val_acc": va_a, "test_acc": te_a}
+        return dict(zip(EVAL_KEYS, accs.tolist()))
 
     @torch.no_grad()
     def infer_full(self) -> torch.Tensor:
         """Layer-wise full-neighbour inference over all nodes: the features
         materialised ``inference_chunk`` rows at a time, then each conv over
         the full graph, through the blocked kernel under ``--spmm blocked``
-        and the chunked ``index_add_`` otherwise (as the reference).
+        and the chunked ``index_add_`` otherwise (as the reference), or
+        under ``--node-shard`` over ranks :meth:`infer_full_sharded`.
         Returns the (N, num_classes) logits on the device."""
+        if self.node_mesh is not None:
+            return self.infer_full_sharded()
         cfg, n = self.cfg, self.ds.num_nodes
         h = torch.cat([self.model.materialize_features(
             torch.arange(s, min(s + cfg.inference_chunk, n), dtype=torch.int32,
                          device=self.device)) for s in range(0, n, cfg.inference_chunk)])
         return self._layerwise(h, "blocked" if cfg.spmm == "blocked" else "xla")
+
+    @torch.no_grad()
+    def infer_full_sharded(self) -> torch.Tensor:
+        """Node-sharded layer-wise inference (JAX ``infer_full_sharded``,
+        ``trainer.py:1121-1159``): this rank's rows' features materialised
+        ``inference_chunk`` rows at a time, every layer over the ring, then
+        every rank's rows gathered over the node axis: the (N, num_classes)
+        logits in node order, on the device of every rank.  Every rank of
+        the group calls it."""
+        ns = self._ensure_nshard_layout(self.node_mesh.n_node)
+        ids, step = ns.node_ids, self.cfg.inference_chunk
+        h = torch.cat([self.model.materialize_features(ids[s:s + step])
+                       for s in range(0, ids.shape[0], step)])
+        return ns.gather_rows(ns.propagate(h, self.model.apply_conv, self.cfg.num_layers))
 
     def _layerwise(self, h: torch.Tensor, route: str) -> torch.Tensor:
         """Every conv layer over the full graph from the features ``h``: the
@@ -917,8 +1030,11 @@ class SageTrainer:
                 self.maybe_populate_cache()
             if not cfg.skip_eval and (
                     (epoch + 1) % cfg.eval_every == 0 or epoch == epochs - 1):
-                # --dist: rank 0 evaluates, every rank gets its accuracies
-                stats.update(self.evaluate() if self.dp is None
+                # --dist: rank 0 evaluates, every rank gets its accuracies;
+                # the node-sharded evaluate is every rank's
+                every = self.dp is None or (self.node_mesh is not None
+                                            and not cfg.eval_sampled)
+                stats.update(self.evaluate() if every
                              else self.dp.from_rank0(self.evaluate, EVAL_KEYS))
                 if stats["val_acc"] >= best["val_acc"]:
                     best = {"val_acc": stats["val_acc"],

@@ -1248,3 +1248,48 @@ def test_dp_step_over_one_nccl_rank_matches_single_device(cuda, tmp_path):
         off = (a - b).detach().abs()
         assert float((off > 0.1 * 0.003).float().mean()) <= 0.05
         assert float(off.max()) <= 3 * 2 * 0.003 + 1e-6
+
+
+def test_node_sharded_step_over_one_nccl_rank_matches_full_neighbor(cuda, tmp_path):
+    """--full-neighbor --node-shard through a one-rank NCCL group given to
+    the trainer, so that it takes the node-sharded step (a node mesh of 1 x
+    1: the lookup of every row in balanced row order, the ring with no
+    rotation, the all-reduce), against the single-device --full-neighbor
+    step from the same state with dropout 0: 3 steps through train_epoch,
+    tt_fwd and tt_grads once a step each, losses within 1e-4 relative and
+    the parameters at hold_step_params' margins (the sums run in another
+    order); then, of the same state, infer_full_sharded against infer_full
+    within 1e-4 and the same evaluate()."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from falcon_ttdforgnns_torch.parallel import init_process_group
+    from falcon_ttdforgnns_torch.train import SageTrainer
+    kw = dict(use_sample=False, node_shard=True, dropout=0.0, lr=0.003)
+    init_process_group("cuda", "file://" + str(tmp_path / "store"), 0, 1, local_rank=0)
+    try:
+        one = tiny_trainer(**kw)
+        assert one.node_mesh is None  # world size 1: the single-device path, as in JAX
+        one.ds = dataclasses.replace(one.ds, train_idx=one.ds.train_idx[:192])
+        ns = SageTrainer(one.ds, one.cfg, device=cuda, group=dist.group.WORLD)
+        assert (ns.node_mesh.n_data, ns.node_mesh.n_node) == (1, 1)
+        ns.model.load_state_dict(one.model.state_dict())
+        losses = []
+        for tr in (one, ns):
+            tt_kernels.reset_launch_counts()
+            losses.append(tr.train_epoch(0)["loss"])
+            assert {k: v for k, v in tt_kernels.launch_counts().items() if v} == {
+                "tt_fwd": 3, "tt_grads": 3}
+        for a, b in zip(ns.model.parameters(), one.model.parameters()):
+            off = (a - b).detach().abs()
+            assert float((off > 3 * 1e-3 * 0.003).float().mean()) <= 1e-3
+            assert float(off.max()) <= 0.05 * 0.003
+        one.model.load_state_dict(ns.model.state_dict())
+        sharded, full = ns.infer_full(), one.infer_full()
+        accs = [tr.evaluate() for tr in (ns, one)]
+    finally:
+        dist.destroy_process_group()
+    assert losses[1] == pytest.approx(losses[0], rel=1e-4)
+    torch.testing.assert_close(sharded, full, rtol=1e-4, atol=1e-4)
+    assert accs[0] == accs[1]

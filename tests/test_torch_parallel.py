@@ -268,13 +268,17 @@ def test_dist_checks_and_world_size_one(hard, tmp_path, monkeypatch):
 def test_dryrun_multichip_and_entry_on_cpu(capsys):
     """graft_entry: the flagship forward at the JAX entry's small shapes,
     and dryrun_multichip(2) on gloo ranks (a --dist step, a mixed epoch in
-    groups of 2, a puregpu --sparse epoch, the replicas equal)."""
+    groups of 2, a puregpu --sparse epoch, the replicas equal; then
+    --node-shard: the dense-bucket and ragged rings within 1e-3 of the
+    plain sum, a node-sharded full-neighbour epoch)."""
     fn, args = graft_entry.entry(device="cpu")
     out = fn(*args)
     assert tuple(out.shape) == (32, 8) and torch.isfinite(out).all()
     res = graft_entry.dryrun_multichip(2, device="cpu")
     assert all(np.isfinite(v) for v in res.values())
-    assert "dryrun_multichip(2) on cpu" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "dryrun_multichip(2) on cpu" in out and "node-sharded full-neighbor" in out
+    assert max(res["ring_err"], res["ragged_err"]) <= 1e-3
 
 
 def test_cli_dist_under_torchrun_on_cpu(tmp_path):

@@ -222,14 +222,36 @@ def test_fit_runs_and_reports(datasets):
     assert 0.0 <= res["best"]["test_acc"] <= 1.0
 
 
-@pytest.mark.parametrize("kw", [dict(dist=True, node_shard=True),
-                                dict(dist=True, node_shard=True, eval_sampled=True),
-                                dict(node_shard=True)])
-def test_unported_options_raise(datasets, kw):
-    """--node-shard (ROADMAP A8.3) raises, alone and beside --dist, which
-    runs since ROADMAP A8.2, and --eval-sampled."""
-    with pytest.raises(NotImplementedError, match="A8.3"):
-        SageTrainer(datasets[0], TrainConfig(**{**TINY, **kw}), device="cpu")
+@pytest.mark.parametrize("kw", [dict(node_shard=True),
+                                dict(node_shard=True, use_sample=False),
+                                dict(dist=True, node_shard=True, use_sample=False),
+                                dict(dist=True, node_shard=True, eval_sampled=True)],
+                         ids=["sampled", "full-neighbor", "dist-full-neighbor",
+                              "dist-eval-sampled"])
+def test_node_shard_at_world_size_one_is_single_device(datasets, kw):
+    """--node-shard without a process group of more than one rank is the
+    single-device path, as JAX's device_count() > 1 decides: no mesh, and an
+    epoch and evaluate() give what the same trainer without --node-shard
+    and --dist gives, bit for bit (--dist --node-shard --eval-sampled
+    builds and evaluates by the sampled forward)."""
+    ds = dataclasses.replace(datasets[0], train_idx=datasets[0].train_idx[:128])
+    trainers = [SageTrainer(ds, TrainConfig(**{**TINY, **kw, **off}), device="cpu")
+                for off in ({}, dict(node_shard=False, dist=False))]
+    assert all(t.node_mesh is None and t.nshard is None and t.dp is None for t in trainers)
+    stats = [t.train_epoch(0) for t in trainers]
+    assert stats[0]["loss"] == stats[1]["loss"]
+    for a, b in zip(*(t.model.parameters() for t in trainers)):
+        assert torch.equal(a, b)
+    assert trainers[0].evaluate() == trainers[1].evaluate()
+
+
+def test_dist_full_neighbor_without_node_shard_raises(datasets):
+    """--dist --full-neighbor without --node-shard raises JAX's ValueError
+    (trainer.py:321-328): full-neighbour training scales out by the node
+    axis."""
+    with pytest.raises(ValueError, match="scales out via --node-shard"):
+        SageTrainer(datasets[0], TrainConfig(**{**TINY, "dist": True, "use_sample": False}),
+                    device="cpu")
 
 
 def test_cuda_requested_without_a_card_raises(datasets):

@@ -19,6 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.models.gin import GNNNode as JaxGNNNode
 from falcon_ttdforgnns_tpu.models.gin import MolGNN as JaxMolGNN
 from falcon_ttdforgnns_tpu.models.gin import graph_pool as jax_graph_pool

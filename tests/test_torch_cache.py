@@ -17,6 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.graph.csr import hard_synthetic_dataset as jax_hard
 from falcon_ttdforgnns_tpu.ops import tt_shapes as jax_tt_shapes
 from falcon_ttdforgnns_tpu.train import SageTrainer as JaxTrainer

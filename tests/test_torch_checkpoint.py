@@ -12,6 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native, jax_native  # noqa: F401 (a fixture)
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.graph import synthetic_dataset as jax_synthetic
 from falcon_ttdforgnns_tpu.train import SageTrainer as JaxTrainer
 from falcon_ttdforgnns_tpu.train import TrainConfig as JaxConfig
@@ -159,7 +163,7 @@ def test_resume_at_an_epoch_boundary_is_bit_identical(ds, tmp_path, kw):
         assert torch.equal(a, b)
 
 
-def test_jax_variables_survive_the_port_checkpoint(tmp_path):
+def test_jax_variables_survive_the_port_checkpoint(jax_native, tmp_path):
     """The JAX trainer's --sparse variables (params, fused-Adam moments and
     t after an epoch), carried into the port by load_jax_variables, come
     back unchanged through the port's save and restore."""

@@ -18,6 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.graph import device_sampler as J
 
 from falcon_ttdforgnns_torch.graph import device_sampler as S

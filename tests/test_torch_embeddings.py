@@ -17,6 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native, jax_native  # noqa: F401 (a fixture)
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.graph.csr import hard_synthetic_dataset as jax_hard
 from falcon_ttdforgnns_tpu.nn import tt_embedding as jemb
 from falcon_ttdforgnns_tpu.train import FullGraphConfig as JFullConfig
@@ -188,7 +192,7 @@ def test_three_no_tt_steps_match_jax(datasets, counts):
         assert tr.access_count_stats() is None
 
 
-def test_access_count_stats_from_the_loader_match_jax(datasets):
+def test_access_count_stats_from_the_loader_match_jax(jax_native, datasets):
     """With TT, --access-counts has the host loader count (the JAX loader
     always does): an epoch of the same batches gives the same counts and
     percentages."""

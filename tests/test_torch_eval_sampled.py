@@ -13,6 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.graph import sampler as jax_sampler
 from falcon_ttdforgnns_tpu.graph.csr import hard_synthetic_dataset as jax_hard
 from falcon_ttdforgnns_tpu.train import SageTrainer as JaxTrainer

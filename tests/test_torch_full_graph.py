@@ -23,6 +23,10 @@ import optax
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.graph.csr import hard_synthetic_dataset as jax_hard
 from falcon_ttdforgnns_tpu.models.gat import GAT as JGAT
 from falcon_ttdforgnns_tpu.models.gcn import GCN as JGCN

@@ -6,6 +6,10 @@ their numpy CSR paths, and both samplers are pinned to their numpy paths
 import numpy as np
 import pytest
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 import falcon_ttdforgnns_tpu.graph.sampler as jax_sampler
 from falcon_ttdforgnns_tpu.graph import csr as jax_csr
 from falcon_ttdforgnns_tpu.graph import reorder as jax_reorder

@@ -25,6 +25,10 @@ import optax
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native, jax_native  # noqa: F401 (a fixture)
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.graph import rmat_edges
 from falcon_ttdforgnns_tpu.graph import sample_block as jax_sample_block
 from falcon_ttdforgnns_tpu.graph import synthetic_dataset as jax_synthetic
@@ -97,7 +101,7 @@ def test_ragged_layout_bit_identical(n, e, seed, S, chunk, balance):
 @pytest.mark.parametrize("n,e,seed,S,pad", [(64, 400, 2, 8, 8), (64, 300, 5, 4, 8),
                                             (2 ** 14, 1_200_000, 1, 8, 1024)],
                          ids=["ring-case", "inference-case", "padding-warning"])
-def test_block_layout_bit_identical(n, e, seed, S, pad):
+def test_block_layout_bit_identical(jax_native, n, e, seed, S, pad):
     """partition_edges_by_block gives JAX's buckets, weights and block bit
     for bit, and warns as JAX does when the padding is several x E."""
     src, dst = graph(n, e, seed)
@@ -373,7 +377,7 @@ def rows_of(results, S=RANKS):
 
 
 @pytest.mark.parametrize("kind", ["dense", "ragged", "skew"])
-def test_ring_matches_jax_and_dense_sum(ranks, cases, kind):
+def test_ring_matches_jax_and_dense_sum(jax_native, ranks, cases, kind):
     """The ring over 4 gloo ranks (buckets in pieces of 100 edges where
     asked): the dense-bucket ring against JAX's ring_spmm on a 4-device
     node mesh and the plain sum; the ragged ring against JAX's
@@ -396,7 +400,7 @@ def test_ring_matches_jax_and_dense_sum(ranks, cases, kind):
         assert (np.abs(got - ref) / (np.abs(ref) + 1e-2)).max() < 5e-3
 
 
-def test_ring_gradient_is_the_transposed_sum(ranks, cases):
+def test_ring_gradient_is_the_transposed_sum(jax_native, ranks, cases):
     """d/dh of sum(out^2) through the transposed ring (S - 1 rotations the
     other way): JAX's gradient through ring_spmm_ragged and the plain
     2 A^T (A h), at JAX's 1e-3."""
@@ -408,7 +412,7 @@ def test_ring_gradient_is_the_transposed_sum(ranks, cases):
     np.testing.assert_allclose(g, gref, rtol=1e-3, atol=1e-3)
 
 
-def test_hybrid_mesh_rings_per_data_group(ranks, cases):
+def test_hybrid_mesh_rings_per_data_group(jax_native, ranks, cases):
     """On the 2 x 2 mesh each data group's node ring of 2 gives the whole
     sum; rank r is data index r // 2, node index r % 2."""
     src, dst, h, lay, _ = cases["hybrid"]
@@ -420,7 +424,7 @@ def test_hybrid_mesh_rings_per_data_group(ranks, cases):
 
 
 @pytest.mark.parametrize("kind", ["infer_dense", "infer_ragged"])
-def test_sharded_layerwise_inference_matches_dense(ranks, cases, kind):
+def test_sharded_layerwise_inference_matches_dense(jax_native, ranks, cases, kind):
     """sharded_layerwise_inference over 4 ranks, two layers of tanh(mean @
     w), on the dense buckets and on the ragged layout: the dense reference
     at JAX's 1e-4 (JAX TestShardedInference)."""
@@ -434,7 +438,7 @@ def test_sharded_layerwise_inference_matches_dense(ranks, cases, kind):
 
 
 @pytest.mark.parametrize("key", ["step", "hybrid_step"])
-def test_node_sharded_step_matches_jax(ranks, cases, key):
+def test_node_sharded_step_matches_jax(jax_native, ranks, cases, key):
     """One node-sharded step from JAX's initialisation on JAX's seeds, at S
     = 4 (200 nodes, 40 seeds) and on the hybrid 2 x 2 mesh (160 nodes, 32
     seeds, 16 a data group): the loss and the parameters against JAX's
@@ -461,7 +465,7 @@ def one_process(ds, cfg, variables):
     return tr
 
 
-def test_step_with_every_seed_in_one_block(ranks, cases):
+def test_step_with_every_seed_in_one_block(jax_native, ranks, cases):
     """A batch whose seeds all lie in node rank 0's rows: the other ranks'
     losses are empty sums, their backward still runs the transposed rings,
     and the step equals the single-device full-neighbour step."""
@@ -479,7 +483,7 @@ def test_step_with_every_seed_in_one_block(ranks, cases):
 
 
 @pytest.mark.parametrize("key", ["epoch", "hybrid_epoch"])
-def test_node_shard_trainer_epoch_matches_jax(ranks, cases, key):
+def test_node_shard_trainer_epoch_matches_jax(jax_native, ranks, cases, key):
     """SageTrainer(use_sample=False, node_shard=True[, dist=True]) over 4
     ranks (node mesh 1 x 4; --dist: the hybrid 2 x 2) against JAX's trainer
     on its 8-device mesh (1 x 8; 2 x 4), from the same variables: an epoch
@@ -507,7 +511,7 @@ def test_node_shard_trainer_epoch_matches_jax(ranks, cases, key):
     assert all(r["accs"] == got["accs"] for r in ranks[key])
 
 
-def test_data_shards_and_num_chips_on_ranks(ranks):
+def test_data_shards_and_num_chips_on_ranks(jax_native, ranks):
     """--data-shards 4 over 4 ranks is a 4 x 1 mesh and trains; --data-shards
     3 and a batch of 30 on 4 data groups raise JAX's ValueErrors; --num-chips
     other than the world size raises."""
@@ -519,7 +523,7 @@ def test_data_shards_and_num_chips_on_ranks(ranks):
 
 
 @pytest.mark.parametrize("key", ["sampled", "sampled_dist_eval_sampled"])
-def test_sampled_training_under_node_shard(ranks, cases, key):
+def test_sampled_training_under_node_shard(jax_native, ranks, cases, key):
     """Sampled training with --node-shard over 4 ranks: the training step
     is the sampled one (data-parallel under --dist), evaluate and
     infer_full take the ring over a node axis of all 4 ranks (the same

@@ -8,6 +8,10 @@ import optax
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.train.optim import reduce_on_plateau as jax_plateau
 from falcon_ttdforgnns_tpu.train.optim import rowwise_adagrad as jax_rowwise_adagrad
 from falcon_ttdforgnns_tpu.train.optim import tt_adagrad as jax_tt_adagrad

@@ -23,6 +23,10 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from torch_jax_native import ensure_jax_native, jax_native  # noqa: F401 (a fixture)
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.graph import sample_block as jax_sample_block
 from falcon_ttdforgnns_tpu.graph import synthetic_dataset as jax_synthetic
 from falcon_ttdforgnns_tpu.graph.csr import hard_synthetic_dataset as jax_hard
@@ -92,7 +96,7 @@ def hard():
             dataclasses.replace(jds, train_idx=jds.train_idx[:256]))
 
 
-def test_dp_step_matches_jax_dp_and_single_device(tmp_path):
+def test_dp_step_matches_jax_dp_and_single_device(jax_native, tmp_path):
     """One --dist step over 2 gloo ranks against JAX's make_dp_train_step
     on the 8-device mesh and JAX's single-device step, at the shapes of
     tests/test_parallel.py (800 nodes, SAGE 2x16, ranks 4,4, batch 32 at
@@ -147,7 +151,7 @@ def test_dp_step_matches_jax_dp_and_single_device(tmp_path):
         close(got["state"], params_from_jax(jax.tree.map(np.asarray, want)), 5e-4, 1e-5)
 
 
-def test_mixed_dist_epoch_matches_jax_dist_trainer(hard, tmp_path):
+def test_mixed_dist_epoch_matches_jax_dist_trainer(jax_native, hard, tmp_path):
     """Mixed --dist --sparse with steps_per_call 2 over 2 gloo ranks against
     JAX's SageTrainer(dist=True) on the 8-device mesh (make_dp_multi_step):
     256 train ids at batch 64 make 2 groups of 2 steps.  The fused update is

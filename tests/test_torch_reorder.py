@@ -9,9 +9,13 @@ and its memo; the host caches; the library builds into the port's own
 import numpy as np
 import pytest
 
+from torch_jax_native import ensure_jax_native, jax_native  # noqa: F401 (a fixture)
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 import falcon_ttdforgnns_tpu.graph.reorder as jax_reorder
 import falcon_ttdforgnns_tpu.graph.sampler as jax_sampler
-from falcon_ttdforgnns_tpu.graph import _native as jax_native
+from falcon_ttdforgnns_tpu.graph import _native as jax_runtime
 from falcon_ttdforgnns_tpu.graph import csr as jax_csr
 from falcon_ttdforgnns_tpu.utils import host_cache as jax_host_cache
 
@@ -33,7 +37,7 @@ def test_library_builds_into_the_ports_build_dir():
     assert so.parent == _build.BUILD_DIR and so.exists()
     assert so == _build.host_library_path("falcon_native")
     assert "falcon_ttdforgnns_tpu" not in str(so)
-    assert _native.version() == jax_native.VERSION == 1
+    assert _native.version() == jax_runtime.VERSION == 1
     with pytest.raises(ValueError):
         _build.host_library_path("tt_kernels")
 
@@ -50,11 +54,11 @@ def test_native_source_is_the_reference_copy():
 
 
 @pytest.mark.parametrize("add_reverse", [True, False])
-def test_native_build_csr_identical(add_reverse):
+def test_native_build_csr_identical(jax_native, add_reverse):
     rng = np.random.default_rng(0)
     src, dst = rng.integers(0, 5000, 150_000), rng.integers(0, 5000, 150_000)
     a = _native.build_csr(src, dst, 5000, add_reverse)
-    b = jax_native.build_csr(src, dst, 5000, add_reverse)
+    b = jax_runtime.build_csr(src, dst, 5000, add_reverse)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
     # over 100K edges from_edges takes it in both packages
@@ -66,7 +70,7 @@ def test_native_build_csr_identical(add_reverse):
 
 
 @pytest.mark.parametrize("num_edges", [60_000, 600_000])
-def test_rmat_edges_identical(num_edges):
+def test_rmat_edges_identical(jax_native, num_edges):
     """Below 500K edges both packages draw R-MAT in numpy, above natively."""
     a = csr.rmat_edges(40_000, num_edges, seed=3)
     b = jax_csr.rmat_edges(40_000, num_edges, seed=3)
@@ -78,11 +82,11 @@ def test_rmat_edges_identical(num_edges):
 
 
 @pytest.mark.parametrize("fanouts", [(3, 4, 5), (15, 10, 5)])
-def test_native_sample_block_multi_identical(graphs, fanouts):
+def test_native_sample_block_multi_identical(jax_native, graphs, fanouts):
     g, jg = graphs
     seeds = np.random.default_rng(1).choice(g.num_nodes, 256, replace=False)
     a = _native.sample_block_multi(g.indptr, g.indices, seeds, fanouts, 77)
-    b = jax_native.sample_block_multi(jg.indptr, jg.indices, seeds, fanouts, 77)
+    b = jax_runtime.sample_block_multi(jg.indptr, jg.indices, seeds, fanouts, 77)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
     # the sampler draws the native seed from the generator as JAX does
@@ -97,7 +101,7 @@ def test_native_sample_block_multi_identical(graphs, fanouts):
 
 
 @pytest.mark.parametrize("workers", [1, 3])
-def test_native_loader_batches_and_freq_identical(graphs, workers):
+def test_native_loader_batches_and_freq_identical(jax_native, graphs, workers):
     """The loader's batches and its access counts (np.bincount here,
     np.add.at in JAX) are the JAX loader's."""
     g, jg = graphs
@@ -119,7 +123,7 @@ def test_native_loader_batches_and_freq_identical(graphs, workers):
 
 
 @pytest.mark.parametrize("partition", [8, 128, 0, -1, -2, -3, -4])
-def test_every_partition_code_identical(graphs, partition):
+def test_every_partition_code_identical(jax_native, graphs, partition):
     g, jg = graphs
     perm = reorder.reorder_permutation(g, partition, levels=LEVELS, seed=1)
     want = jax_reorder.reorder_permutation(jg, partition, levels=LEVELS, seed=1)

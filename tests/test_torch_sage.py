@@ -8,6 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.models.sage import SAGE as JaxSAGE
 from falcon_ttdforgnns_tpu.nn.layers import SAGEConv as JaxSAGEConv
 from falcon_ttdforgnns_tpu.graph.csr import hard_synthetic_dataset

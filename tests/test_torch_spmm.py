@@ -23,6 +23,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.ops import segment as JS
 from falcon_ttdforgnns_tpu.ops import spmm_blocked as JB
 from falcon_ttdforgnns_tpu.ops import spmm_pallas as JP

@@ -17,6 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu import profiler as jax_profiler
 from falcon_ttdforgnns_tpu.models.sage import SAGE as JaxSAGE
 from falcon_ttdforgnns_tpu.utils import evaluator as jax_evaluator

@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.graph.csr import hard_synthetic_dataset
 from falcon_ttdforgnns_tpu.models.sage import SAGE as JaxSAGE
 from falcon_ttdforgnns_tpu.ops.segment import spmm_mean as jax_spmm_mean

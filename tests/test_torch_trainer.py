@@ -27,6 +27,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native, jax_native  # noqa: F401 (a fixture)
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.graph.csr import hard_synthetic_dataset as jax_hard
 from falcon_ttdforgnns_tpu.train import SageTrainer as JaxTrainer
 from falcon_ttdforgnns_tpu.train import TrainConfig as JaxConfig
@@ -447,7 +451,7 @@ def test_puregpu_epoch_seeds_and_labels_match_jax(datasets, steps_per_call):
 
 @pytest.mark.parametrize("sparse", [True, False], ids=["sparse", "dense"])
 @pytest.mark.parametrize("steps_per_call", [1, 2, 8])
-def test_mixed_epoch_groups_match_jax(datasets, steps_per_call, sparse):
+def test_mixed_epoch_groups_match_jax(jax_native, datasets, steps_per_call, sparse):
     """ROADMAP C4: the mixed epoch's batches (seeds, layers, labels), step
     for step, are the JAX trainer's, recorded at its _multi_fn (at S = 1 its
     _step_fn), which is not run, on 300 train ids at batch 64: 4 loader

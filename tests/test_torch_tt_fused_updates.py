@@ -15,6 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.ops.tt_pallas import (_sr_cast, tt_fused_adagrad_pallas,
                                                  tt_fused_sgd_pallas, tt_grads_pallas,
                                                  tt_lookup_fused_bf16,

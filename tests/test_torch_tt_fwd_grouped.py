@@ -20,6 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.ops.tt_lookup import tt_lookup_grouped_sorted
 from falcon_ttdforgnns_tpu.ops.tt_pallas import tt_lookup_pallas_padded, tt_lookup_pallas_sr
 

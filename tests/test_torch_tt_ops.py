@@ -14,6 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_native import ensure_jax_native
+
+ensure_jax_native()  # the JAX reference's native runtime, built under a lock
+
 from falcon_ttdforgnns_tpu.ops import tt_init as jax_tt_init
 from falcon_ttdforgnns_tpu.ops import tt_shapes as jax_tt_shapes
 from falcon_ttdforgnns_tpu.ops.tt_lookup import (tt_core_grads as jax_core_grads,

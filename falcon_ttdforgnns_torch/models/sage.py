@@ -27,6 +27,7 @@ from ..nn.tt_embedding import (AccessCountingEmbedding, DenseEmbedding,
                                FixedFeatureEmbedding, TTEmbeddingBag)
 from ..ops.segment import spmm_mean
 from ..ops.tower import fanout_mean_bf16
+from ..utils.metrics import span
 
 
 def make_embed_layer(num_nodes: int, feat_dim: int, use_tt: bool = True,
@@ -103,8 +104,9 @@ class SAGE(nn.Module):
         """Dense-fanout forward: one embedding lookup over every level; a
         training forward counts its accesses for the cache."""
         all_ids, sizes, B = collect_level_ids(seeds, layers)
-        hs = self._split_levels(self.embed(all_ids, count_accesses=train), sizes, B)
-        return self._conv_tower(hs, train, generator)
+        with span("embed.lookup"):
+            h_all = self.embed(all_ids, count_accesses=train)
+        return self._conv_tower(self._split_levels(h_all, sizes, B), train, generator)
 
     def _split_levels(self, h_all: torch.Tensor, sizes: Sequence[int],
                       B: int) -> List[torch.Tensor]:
@@ -116,26 +118,27 @@ class SAGE(nn.Module):
 
     def _conv_tower(self, hs: List[torch.Tensor], train: bool,
                     generator: Optional[torch.Generator]) -> torch.Tensor:
-        B = hs[0].shape[0]
-        if self.bf16:
-            hs = [h.to(torch.bfloat16) for h in hs]
-        for li, conv in enumerate(self.convs):
-            new_hs = []
-            for lev in range(len(hs) - 1):
-                n, f = hs[lev].shape[1], hs[lev + 1].shape[1] // hs[lev].shape[1]
-                nb = hs[lev + 1].reshape(B, n, f, -1)
-                if nb.dtype != torch.bfloat16:
-                    h_neigh = nb.mean(dim=2)
-                elif self.mean_acc_f32:
-                    h_neigh = nb.mean(dim=2, dtype=torch.float32).to(nb.dtype)
-                else:
-                    h_neigh = fanout_mean_bf16(nb)
-                h = conv(hs[lev], h_neigh)
-                if li < self.num_layers - 1:
-                    h = dropout(torch.relu(h), self.dropout, train, generator)
-                new_hs.append(h)
-            hs = new_hs
-        return hs[0][:, 0, :].float()  # (B, num_classes)
+        with span("tower.fwd"):
+            B = hs[0].shape[0]
+            if self.bf16:
+                hs = [h.to(torch.bfloat16) for h in hs]
+            for li, conv in enumerate(self.convs):
+                new_hs = []
+                for lev in range(len(hs) - 1):
+                    n, f = hs[lev].shape[1], hs[lev + 1].shape[1] // hs[lev].shape[1]
+                    nb = hs[lev + 1].reshape(B, n, f, -1)
+                    if nb.dtype != torch.bfloat16:
+                        h_neigh = nb.mean(dim=2)
+                    elif self.mean_acc_f32:
+                        h_neigh = nb.mean(dim=2, dtype=torch.float32).to(nb.dtype)
+                    else:
+                        h_neigh = fanout_mean_bf16(nb)
+                    h = conv(hs[lev], h_neigh)
+                    if li < self.num_layers - 1:
+                        h = dropout(torch.relu(h), self.dropout, train, generator)
+                    new_hs.append(h)
+                hs = new_hs
+            return hs[0][:, 0, :].float()  # (B, num_classes)
 
     def forward_from_embeddings(self, h_all: torch.Tensor, seeds: torch.Tensor,
                                 layers: Sequence[torch.Tensor], train: bool = False,
@@ -155,28 +158,35 @@ class SAGE(nn.Module):
         the JAX convs do: under ``bf16`` the activations after the first
         conv, their SpMM and the logits are bf16."""
         ids = torch.arange(self.num_nodes, dtype=torch.int32, device=src.device)
-        h = self.embed(ids, count_accesses=train)
+        with span("embed.lookup"):
+            h = self.embed(ids, count_accesses=train)
         for li, conv in enumerate(self.convs):
-            h = conv(h, spmm_mean(h, src, dst, self.num_nodes, in_deg, chunk=chunk))
-            if li < self.num_layers - 1:
-                h = dropout(torch.relu(h), self.dropout, train, generator)
+            with span("spmm.aggregate"):
+                agg = spmm_mean(h, src, dst, self.num_nodes, in_deg, chunk=chunk)
+            with span("tower.conv"):
+                h = conv(h, agg)
+                if li < self.num_layers - 1:
+                    h = dropout(torch.relu(h), self.dropout, train, generator)
         return h  # (N, num_classes)
 
     def apply_conv(self, h_dst: torch.Tensor, h_neigh: torch.Tensor,
                    layer_idx: int) -> torch.Tensor:
         """One conv layer given the aggregated neighbour features."""
-        h = self.convs[layer_idx](h_dst, h_neigh)
-        return torch.relu(h) if layer_idx < self.num_layers - 1 else h
+        with span("tower.conv"):
+            h = self.convs[layer_idx](h_dst, h_neigh)
+            return torch.relu(h) if layer_idx < self.num_layers - 1 else h
 
     def forward_full(self, h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                      in_deg: torch.Tensor, num_nodes: int, layer_idx: int,
                      chunk: int = 1 << 22) -> torch.Tensor:
         """One conv layer over the full graph (layer-wise inference): the
         mean over every in-edge, then the conv."""
-        return self.apply_conv(h, spmm_mean(h, src, dst, num_nodes, in_deg, chunk=chunk),
-                               layer_idx)
+        with span("spmm.aggregate"):
+            agg = spmm_mean(h, src, dst, num_nodes, in_deg, chunk=chunk)
+        return self.apply_conv(h, agg, layer_idx)
 
     def materialize_features(self, node_ids: torch.Tensor) -> torch.Tensor:
         """Rows of the feature table (cache hits from the cache); counts no
         access."""
-        return self.embed(node_ids, count_accesses=False)
+        with span("embed.lookup"):
+            return self.embed(node_ids, count_accesses=False)

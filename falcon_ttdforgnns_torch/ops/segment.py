@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.metrics import count, span
 from . import _build
 
 SPMM_CHUNK = 1 << 22         # spmm_sum_chunked, spmm_mean, gcn_norm_spmm
@@ -102,10 +103,13 @@ def edges_by_row(src: torch.Tensor, dst: torch.Tensor,
     """The COO edges as CSR rows of their destinations: (src in row order,
     indptr (num_nodes + 1,) int64, each row's in-degree).  Each row keeps
     its edges in their COO order: ``CSRGraph.to_coo()`` edges, whose dst is
-    non-decreasing, are taken as they are, others by a stable sort."""
-    if dst.numel() > 1 and bool((dst[1:] < dst[:-1]).any()):
-        dst, order = torch.sort(dst, stable=True)
-        src = src.index_select(0, order)
+    non-decreasing, are taken as they are, others by a stable sort.  The
+    order check reads one value into the host (``spmm.host_reads``)."""
+    if dst.numel() > 1:
+        count("spmm.host_reads")
+        if bool((dst[1:] < dst[:-1]).any()):
+            dst, order = torch.sort(dst, stable=True)
+            src = src.index_select(0, order)
     counts = torch.bincount(dst, minlength=num_nodes)
     indptr = torch.zeros(num_nodes + 1, dtype=torch.int64, device=dst.device)
     torch.cumsum(counts, 0, out=indptr[1:])
@@ -153,6 +157,7 @@ def segment_mean_bf16(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
         raise TypeError("segment_mean_bf16: src and indptr are 1-D int64")
     if deg.shape != (n,):
         raise ValueError(f"segment_mean_bf16: deg of shape {tuple(deg.shape)}, expected ({n},)")
+    count("spmm.host_reads", 4 if src.numel() else 2)  # the int() reads below
     if int(indptr[0]) != 0 or int(indptr[-1]) != src.shape[0] or (src.numel() and (
             int(src.min()) < 0 or int(src.max()) >= h.shape[0])):
         raise ValueError("segment_mean_bf16: indptr must span src, and src index rows of h")
@@ -183,7 +188,8 @@ def spmm_mean(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     if h.dtype == torch.bfloat16:
         if h.requires_grad and torch.is_grad_enabled():
             raise ValueError("the bf16 spmm_mean is forward only; train full-graph in f32")
-        src, indptr, counts = edges_by_row(src, dst, num_nodes)
+        with span("spmm.rows"):
+            src, indptr, counts = edges_by_row(src, dst, num_nodes)
         if in_deg is None:
             in_deg = torch.clamp(counts, max=BF16_COUNT_MAX)
         return segment_mean_bf16(h, src, indptr, in_deg)

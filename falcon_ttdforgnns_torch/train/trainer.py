@@ -128,7 +128,7 @@ from ..parallel.data_parallel import data_parallel_for
 from ..parallel.mesh import rank
 from ..parallel.node_sharding import NodeSharding, node_mesh_for, partition_edges_ragged
 from ..utils import resolve_device
-from ..utils.metrics import access_percentages, throughput
+from ..utils.metrics import access_percentages, count, span, spanned, throughput
 from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
 from .optim import (ADAGRAD_EPS, ADAM_B1, ADAM_B2, ADAM_EPS, ROWWISE_ADAGRAD_EPS,
                     TT_OPTIMIZERS, adam_init, adam_update, auto_plateau_patience,
@@ -281,20 +281,24 @@ class _EpochMeter:
         self._window += n_samples
         if not log_now:
             return
-        loss_f, acc_f = float(loss), float(acc)
-        tput = throughput(self._window, time.perf_counter() - self._t0)
-        tr = self._tr
-        tr._metrics["loss"].append(loss_f)
-        tr._metrics["throughput"].append(tput)
-        if tr.logger:
-            tr.logger.info(f"epoch {self._epoch} step {tr.step} loss {loss_f:.4f} "
-                           f"acc {acc_f:.4f} {tput:.0f} samples/s")
+        with span("trainer.log"):
+            count("trainer.host_reads", 2)
+            loss_f, acc_f = float(loss), float(acc)
+            tput = throughput(self._window, time.perf_counter() - self._t0)
+            tr = self._tr
+            tr._metrics["loss"].append(loss_f)
+            tr._metrics["throughput"].append(tput)
+            if tr.logger:
+                tr.logger.info(f"epoch {self._epoch} step {tr.step} loss {loss_f:.4f} "
+                               f"acc {acc_f:.4f} {tput:.0f} samples/s")
         self._t0 = time.perf_counter()
         self._window = 0
 
     def summary(self) -> Dict[str, float]:
-        losses = torch.stack(self._losses).tolist() if self._losses else []
-        accs = torch.stack(self._accs).tolist() if self._accs else []
+        with span("trainer.log"):
+            count("trainer.host_reads", 2 if self._losses else 0)
+            losses = torch.stack(self._losses).tolist() if self._losses else []
+            accs = torch.stack(self._accs).tolist() if self._accs else []
         epoch_time = time.perf_counter() - self._t_epoch
         return {
             "loss": float(np.mean(losses)) if losses else float("nan"),
@@ -436,8 +440,9 @@ class SageTrainer:
     def train_step(self, seeds, layers, labels) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step on one sampled batch (host arrays or tensors);
         returns (loss, acc) as device scalars without a host sync."""
-        seeds, labels = self._tensor(seeds), self._tensor(labels)
-        return self._step(seeds, [self._tensor(l) for l in layers], labels)
+        with span("trainer.step"):
+            seeds, labels = self._tensor(seeds), self._tensor(labels)
+            return self._step(seeds, [self._tensor(l) for l in layers], labels)
 
     def sample_layers(self, seeds: torch.Tensor) -> List[torch.Tensor]:
         """``--mode puregpu``: the fan-out tree of ``seeds`` (on the device),
@@ -445,17 +450,19 @@ class SageTrainer:
         ``sample_gen``; no host sync."""
         if self._indptr_dev is None:
             raise ValueError("in-step sampling needs --mode puregpu (the graph on the device)")
-        if self._table_dev is not None:
-            return device_sample_block_table(self._table_dev, seeds, self.cfg.fanouts,
-                                             self.sample_gen)
-        return device_sample_block(self._indptr_dev, self._indices_dev, seeds,
-                                   self.cfg.fanouts, self.sample_gen)
+        with span("sampler.device"):
+            if self._table_dev is not None:
+                return device_sample_block_table(self._table_dev, seeds, self.cfg.fanouts,
+                                                 self.sample_gen)
+            return device_sample_block(self._indptr_dev, self._indices_dev, seeds,
+                                       self.cfg.fanouts, self.sample_gen)
 
     def device_train_step(self, seeds: torch.Tensor,
                           labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """One ``--mode puregpu`` step: sample on the device, then the step
         body of :meth:`train_step`; seeds and labels are device tensors."""
-        return self._step(seeds, self.sample_layers(seeds), labels)
+        with span("trainer.step"):
+            return self._step(seeds, self.sample_layers(seeds), labels)
 
     def _step(self, seeds: torch.Tensor, layers: List[torch.Tensor],
               labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -471,9 +478,10 @@ class SageTrainer:
             return self._routed_update(logits, labels)
         all_ids, _, _ = collect_level_ids(seeds, layers)
         all_ids = all_ids.to(torch.int32)
-        order = grouped_order(all_ids)  # one sort a step, for tt_fwd and tt_grads
+        with span("embed.sort"):
+            order = grouped_order(all_ids)  # one sort a step, for tt_fwd and tt_grads
         cores = [c.detach() for c in self.cores]
-        with torch.no_grad():
+        with torch.no_grad(), span("embed.lookup"):
             if self.h_dtype == torch.bfloat16 and cfg.bf16_sr:
                 h_all = tt_fwd_sr(self.shapes, cores, all_ids, self._sr_seed(),
                                   order=order)
@@ -484,11 +492,13 @@ class SageTrainer:
             h_all, seeds, layers, train=True, generator=self.dropout_gen)
         loss = F.cross_entropy(logits, labels)
         acc = (logits.detach().argmax(-1) == labels).float().mean()
-        d_h, *grads = torch.autograd.grad(self._share(loss), [h_all, *self.opt_params])
+        with span("trainer.backward"):
+            d_h, *grads = torch.autograd.grad(self._share(loss), [h_all, *self.opt_params])
         if self.dp is None:
-            scale = self._plateau_scale(loss)
-            adam_update(self.opt_params, grads, self.opt_state, cfg.lr, scale,
-                        cfg.weight_decay)
+            with span("optim.dense"):
+                scale = self._plateau_scale(loss)
+                adam_update(self.opt_params, grads, self.opt_state, cfg.lr, scale,
+                            cfg.weight_decay)
             self._fused_core_update(cores, all_ids, d_h.contiguous(), scale, order)
             return loss.detach(), acc
         # --dist: the fused update split around the all-reduce, which takes
@@ -496,9 +506,10 @@ class SageTrainer:
         core_grads = tt_grads(self.shapes, cores, all_ids, d_h.contiguous(), order=order)
         loss, acc, grads = self.dp.all_reduce(loss, acc, [*grads, *core_grads])
         n = len(self.opt_params)
-        scale = self._plateau_scale(loss)
-        adam_update(self.opt_params, grads[:n], self.opt_state, cfg.lr, scale,
-                    cfg.weight_decay)
+        with span("optim.dense"):
+            scale = self._plateau_scale(loss)
+            adam_update(self.opt_params, grads[:n], self.opt_state, cfg.lr, scale,
+                        cfg.weight_decay)
         self._core_apply(cores, grads[n:], scale)
         return loss, acc
 
@@ -529,7 +540,8 @@ class SageTrainer:
         :meth:`_apply_update`."""
         loss = F.cross_entropy(logits, labels)
         acc = (logits.detach().argmax(-1) == labels).float().mean()
-        grads = torch.autograd.grad(self._share(loss), self._trained())
+        with span("trainer.backward"):
+            grads = torch.autograd.grad(self._share(loss), self._trained())
         if self.dp is not None:
             loss, acc, grads = self.dp.all_reduce(loss, acc, grads)
         return self._apply_update(loss, acc, grads)
@@ -550,14 +562,15 @@ class SageTrainer:
         n = len(self.opt_params)
         m = n + (len(self.cores) if self.routed_cores else 0)
         grads, core_grads, cache_grads = grads[:n], grads[n:m], grads[m:]
-        scale = self._plateau_scale(loss)
-        adam_update(self.opt_params, grads, self.opt_state, cfg.lr, scale,
-                    cfg.weight_decay)
-        if self.routed_cores:
-            core_update(self.cores, core_grads, self.tt_acc, cfg.tt_optimizer,
-                        cfg.lr, scale)
-        if self.cache_weight is not None:
-            cache_update(self.cache_weight, cache_grads[0], self.cache_opt, scale)
+        with span("optim.dense"):
+            scale = self._plateau_scale(loss)
+            adam_update(self.opt_params, grads, self.opt_state, cfg.lr, scale,
+                        cfg.weight_decay)
+            if self.routed_cores:
+                core_update(self.cores, core_grads, self.tt_acc, cfg.tt_optimizer,
+                            cfg.lr, scale)
+            if self.cache_weight is not None:
+                cache_update(self.cache_weight, cache_grads[0], self.cache_opt, scale)
         return loss.detach(), acc
 
     def full_neighbor_step(self, seeds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -565,19 +578,21 @@ class SageTrainer:
         the train-mode full-graph forward over every edge, the loss on the
         rows of ``seeds`` (a device tensor; their labels are gathered on the
         device), and the routed update."""
-        src, dst, deg, labels, *_ = self._eval_graph()
-        logits = self.model.forward_full_graph(src, dst, deg, train=True,
-                                               chunk=self.cfg.edge_chunk,
-                                               generator=self.dropout_gen)
-        return self._routed_update(logits.index_select(0, seeds),
-                                   labels.index_select(0, seeds))
+        with span("trainer.step"):
+            src, dst, deg, labels, *_ = self._eval_graph()
+            logits = self.model.forward_full_graph(src, dst, deg, train=True,
+                                                   chunk=self.cfg.edge_chunk,
+                                                   generator=self.dropout_gen)
+            return self._routed_update(logits.index_select(0, seeds),
+                                       labels.index_select(0, seeds))
 
     def node_sharded_step(self, pick: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """One node-sharded ``--full-neighbor`` step (JAX
         ``make_node_sharded_full_step``) on the batch of node ids ``pick``
         (host), every rank of the group at once: :meth:`node_sharded_grads`,
         then the routed update.  Returns the global loss and accuracy."""
-        return self._apply_update(*self.node_sharded_grads(pick))
+        with span("trainer.step"):
+            return self._apply_update(*self.node_sharded_grads(pick))
 
     def node_sharded_grads(self, pick: np.ndarray):
         """The node-sharded step's global loss, accuracy and gradients of
@@ -607,30 +622,32 @@ class SageTrainer:
         with the plateau-scaled lr, or sgd/adagrad with the fixed lr (JAX
         ``trainer.py:673-707``); ``order`` is the step's sort of ``ids``."""
         cfg = self.cfg
-        if cfg.tt_optimizer == "adam":
-            tt_fused_adam(self.shapes, cores, self.tt_opt.m, self.tt_opt.v, ids, d_h,
-                          self._adam_scal(scale), ADAM_B1, ADAM_B2, ADAM_EPS, order=order)
-        elif cfg.tt_optimizer == "sgd":
-            tt_fused_sgd(self.shapes, cores, ids, d_h, cfg.lr, order=order)
-        else:
-            rowwise = cfg.tt_optimizer == "rowwise_adagrad"
-            tt_fused_adagrad(self.shapes, cores, self.tt_acc, ids, d_h, cfg.lr,
-                             ROWWISE_ADAGRAD_EPS if rowwise else ADAGRAD_EPS, rowwise,
-                             order=order)
+        with span("optim.tt"):
+            if cfg.tt_optimizer == "adam":
+                tt_fused_adam(self.shapes, cores, self.tt_opt.m, self.tt_opt.v, ids, d_h,
+                              self._adam_scal(scale), ADAM_B1, ADAM_B2, ADAM_EPS, order=order)
+            elif cfg.tt_optimizer == "sgd":
+                tt_fused_sgd(self.shapes, cores, ids, d_h, cfg.lr, order=order)
+            else:
+                rowwise = cfg.tt_optimizer == "rowwise_adagrad"
+                tt_fused_adagrad(self.shapes, cores, self.tt_acc, ids, d_h, cfg.lr,
+                                 ROWWISE_ADAGRAD_EPS if rowwise else ADAGRAD_EPS, rowwise,
+                                 order=order)
 
     def _core_apply(self, cores, grads, scale) -> None:
         """``--dist``: the update of :meth:`_fused_core_update` from the
         all-reduced core gradients."""
         cfg = self.cfg
-        if cfg.tt_optimizer == "adam":
-            tt_adam_apply(cores, self.tt_opt.m, self.tt_opt.v, grads, self._adam_scal(scale),
-                          ADAM_B1, ADAM_B2, ADAM_EPS)
-        elif cfg.tt_optimizer == "sgd":
-            tt_sgd_apply(cores, grads, cfg.lr)
-        else:
-            rowwise = cfg.tt_optimizer == "rowwise_adagrad"
-            tt_adagrad_apply(cores, self.tt_acc, grads, cfg.lr,
-                             ROWWISE_ADAGRAD_EPS if rowwise else ADAGRAD_EPS, rowwise)
+        with span("optim.tt"):
+            if cfg.tt_optimizer == "adam":
+                tt_adam_apply(cores, self.tt_opt.m, self.tt_opt.v, grads,
+                              self._adam_scal(scale), ADAM_B1, ADAM_B2, ADAM_EPS)
+            elif cfg.tt_optimizer == "sgd":
+                tt_sgd_apply(cores, grads, cfg.lr)
+            else:
+                rowwise = cfg.tt_optimizer == "rowwise_adagrad"
+                tt_adagrad_apply(cores, self.tt_acc, grads, cfg.lr,
+                                 ROWWISE_ADAGRAD_EPS if rowwise else ADAGRAD_EPS, rowwise)
 
     def _adam_scal(self, scale: torch.Tensor) -> torch.Tensor:
         """The fused Adam's step count, advanced, and its
@@ -649,7 +666,7 @@ class SageTrainer:
         if cfg.steps_per_call > 1:
             return self._train_epoch_grouped(epoch)
         meter = _EpochMeter(self, epoch)
-        for it, batch in enumerate(self.loader):
+        for it, batch in enumerate(spanned(self.loader, "trainer.prep")):
             loss, acc = self.train_step(batch.seeds, batch.layers, batch.labels)
             self.step += 1
             meter.record(loss, acc, cfg.batch_size,
@@ -687,7 +704,7 @@ class SageTrainer:
         S = cfg.steps_per_call
         n_groups = -(-len(self.loader) // S)
         meter = _EpochMeter(self, epoch)
-        for g, group in enumerate(self._grouped_batches()):
+        for g, group in enumerate(spanned(self._grouped_batches(), "trainer.prep")):
             losses, accs = [], []
             for b in group:
                 loss, acc = self.train_step(b.seeds, b.layers, b.labels)
@@ -710,19 +727,22 @@ class SageTrainer:
         cfg = self.cfg
         S, B = cfg.steps_per_call, cfg.batch_size
         self.sample_gen.manual_seed(cfg.seed + 2000 + epoch)
-        order = np.random.default_rng(cfg.seed + 31 * epoch).permutation(self.ds.train_idx)
+        with span("trainer.prep"):
+            order = np.random.default_rng(cfg.seed + 31 * epoch).permutation(self.ds.train_idx)
         per_group = S * B
         n_groups = max(1, -(-len(order) // per_group))
         meter = _EpochMeter(self, epoch)
         for g in range(n_groups):
-            pick = _wrap_full(order[g * per_group:(g + 1) * per_group], order, per_group)
-            packed = np.empty((S, 2, B), np.int32)
-            packed[:, 0] = pick.reshape(S, B)
-            packed[:, 1] = self.ds.labels[pick].reshape(S, B)
-            packed = self._tensor(packed)  # the group's one host-to-device copy
+            with span("trainer.prep"):
+                pick = _wrap_full(order[g * per_group:(g + 1) * per_group], order, per_group)
+                packed = np.empty((S, 2, B), np.int32)
+                packed[:, 0] = pick.reshape(S, B)
+                packed[:, 1] = self.ds.labels[pick].reshape(S, B)
+                packed = self._tensor(packed)  # the group's one host-to-device copy
+                batches = [(packed[i, 0], packed[i, 1]) for i in range(S)]
             losses, accs = [], []
-            for i in range(S):
-                loss, acc = self.device_train_step(packed[i, 0], packed[i, 1])
+            for seeds, labels in batches:
+                loss, acc = self.device_train_step(seeds, labels)
                 losses.append(loss)
                 accs.append(acc)
             self.step += S
@@ -862,25 +882,28 @@ class SageTrainer:
         scalars come back to the host.  ``--eval-sampled`` takes
         :meth:`evaluate_sampled` instead, and ``--node-shard`` over ranks
         :meth:`infer_full_sharded` (every rank of the group calls it)."""
-        if self.cfg.eval_sampled:
-            return self.evaluate_sampled()
-        if self.node_mesh is not None:
-            return self._accuracies(self.infer_full_sharded())
-        src, dst, deg, *_ = self._eval_graph()
-        if self.cfg.spmm == "xla":
-            logits = self.model.forward_full_graph(src, dst, deg, train=False,
-                                                   chunk=self.cfg.edge_chunk)
-        else:
-            logits = self._layerwise(self.model.materialize_features(torch.arange(
-                self.ds.num_nodes, dtype=torch.int32, device=self.device)), self.cfg.spmm)
-        return self._accuracies(logits)
+        with span("trainer.eval"):
+            if self.cfg.eval_sampled:
+                return self.evaluate_sampled()
+            if self.node_mesh is not None:
+                return self._accuracies(self.infer_full_sharded())
+            src, dst, deg, *_ = self._eval_graph()
+            if self.cfg.spmm == "xla":
+                logits = self.model.forward_full_graph(src, dst, deg, train=False,
+                                                       chunk=self.cfg.edge_chunk)
+            else:
+                logits = self._layerwise(self.model.materialize_features(torch.arange(
+                    self.ds.num_nodes, dtype=torch.int32, device=self.device)), self.cfg.spmm)
+            return self._accuracies(logits)
 
     def _accuracies(self, logits: torch.Tensor) -> Dict[str, float]:
         """The three splits' accuracies of every node's ``logits``."""
-        labels, *splits = self._eval_labels()
-        pred = logits.argmax(-1)
-        accs = torch.stack([(pred[i] == labels[i]).float().mean() for i in splits])
-        return dict(zip(EVAL_KEYS, accs.tolist()))
+        with span("trainer.accuracies"):
+            labels, *splits = self._eval_labels()
+            pred = logits.argmax(-1)
+            accs = torch.stack([(pred[i] == labels[i]).float().mean() for i in splits])
+            count("trainer.host_reads")
+            return dict(zip(EVAL_KEYS, accs.tolist()))
 
     @torch.no_grad()
     def infer_full(self) -> torch.Tensor:
@@ -924,7 +947,9 @@ class SageTrainer:
         spmm = self.full_graph_spmm(route)
         degc = torch.clamp(deg, min=1.0)[:, None]
         for li in range(self.cfg.num_layers):
-            h = self.model.apply_conv(h, spmm(h) / degc, li)
+            with span("spmm.aggregate"):
+                agg = spmm(h) / degc
+            h = self.model.apply_conv(h, agg, li)
         return h
 
     def maybe_populate_cache(self) -> None:

@@ -4,14 +4,30 @@ the reference's ``utils.py:21-51`` memory_usage, count_nnz and
 give_throughput, ``utils.py:162-194`` access-percentage analytics and
 ``utils.py:196-220`` gpu_timing).  Timing uses CUDA events and tracing
 ``torch.profiler``; the plots are drawn only where matplotlib is
-installed, as in the reference."""
+installed, as in the reference.
+
+The program's spans (:func:`span`, :func:`count`, :func:`set_tracing`,
+:func:`span_stats`, :func:`reset_spans`) time its layers where the work
+runs.  Tracing is off by default, and then a span is one shared null
+context.  While it is on, a span opens a ``torch.profiler.record_function``
+of its name while a profiler records (so that its trace shows the span on
+the clock of the device records), reads the host clock at enter and exit
+and, once CUDA is initialised, records a pair of CUDA events on the current
+stream (none while the stream is being captured).  No span synchronises: a record's
+events are resolved once the device has reached them (``query()``, each
+time an outermost span opens) or when the stats are read, after a
+synchronise.  A span's device ms is the time
+between the stream reaching its start event and its end event: its device
+work while the host is ahead, and besides that whatever the device waited
+inside it for the host while the host is behind."""
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,11 +79,226 @@ def device_memory_stats() -> Dict[str, Dict[str, float]]:
     return out
 
 
+class _Record:
+    """One span: its name, its parent's record (None at the top), its unit
+    (the serial of the outermost span open around it, which every span of
+    one step or call shares), the host clock at enter and exit
+    (``perf_counter_ns``), its CUDA event pair until it is resolved (None
+    where none was recorded), its device ms once resolved, and the host ns
+    and device ms its direct children took."""
+
+    __slots__ = ("name", "parent", "unit", "t0", "t1", "stream", "events", "dev",
+                 "child_host", "child_dev")
+
+    def __init__(self, name: str, parent: Optional["_Record"], unit: int):
+        self.name, self.parent, self.unit = name, parent, unit
+        self.t0 = self.t1 = self.child_host = 0
+        self.child_dev = 0.0
+        self.stream = self.events = self.dev = None
+
+
+class _Totals:
+    __slots__ = ("calls", "units", "last_unit", "host_ns", "host_self_ns", "dev_calls",
+                 "dev_ms", "dev_self_ms", "parents")
+
+    def __init__(self):
+        self.calls = self.units = self.host_ns = self.host_self_ns = self.dev_calls = 0
+        self.last_unit = -1
+        self.dev_ms = self.dev_self_ms = 0.0
+        self.parents = set()
+
+
+class SpanTracer:
+    """The records of the process's spans: the open ones, innermost last;
+    the closed ones whose device time is not known yet, in the order they
+    closed (children before their parent), at most ``capacity`` while the
+    device keeps up; and the totals by name that every resolved record is
+    added to.
+    Each time an outermost span opens, the pending records whose end event
+    the device has reached (``query()``: no sync) are resolved, their
+    events kept for reuse: inside the new span, where a profiler's trace
+    shows the cost, and not after the span that last read the device.
+    Spans are opened and closed by one thread."""
+
+    def __init__(self, capacity: int = 1 << 16):
+        self.capacity = capacity
+        self.reset()
+
+    def reset(self) -> None:
+        self.open: List[_Record] = []
+        self.pending: List[_Record] = []
+        self.totals: Dict[str, _Totals] = {}
+        self.counters: Dict[str, int] = {}
+        self.units = 0
+        self.spare: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+
+    def enter(self, name: str) -> _Record:
+        parent = self.open[-1] if self.open else None
+        if parent is None:
+            self.units += 1
+            self.resolve(wait=False)
+        rec = _Record(name, parent, parent.unit if parent else self.units)
+        if torch.cuda.is_initialized() and not torch.cuda.is_current_stream_capturing():
+            rec.stream = torch.accelerator.current_stream()  # a fifth of the cuda call's cost
+            rec.events = (self.spare.pop() if self.spare else
+                          (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            rec.events[0].record(rec.stream)
+        self.open.append(rec)
+        rec.t0 = time.perf_counter_ns()
+        return rec
+
+    def exit(self, rec: _Record) -> None:
+        rec.t1 = time.perf_counter_ns()
+        if rec.events is not None:
+            rec.events[1].record(rec.stream)
+        if self.open and self.open[-1] is rec:
+            self.open.pop()
+        if rec.parent is not None:
+            rec.parent.child_host += rec.t1 - rec.t0
+        self.pending.append(rec)
+        if len(self.pending) >= self.capacity:
+            self.resolve(wait=False)
+
+    def resolve(self, wait: bool) -> None:
+        """Add the pending records to the totals, oldest first: those the
+        device has finished, or all of them after a synchronise."""
+        if wait and any(r.events is not None for r in self.pending):
+            torch.cuda.synchronize()
+        n = 0
+        for rec in self.pending:
+            if not wait and rec.events is not None and not rec.events[1].query():
+                break
+            n += 1
+        for rec in self.pending[:n]:
+            t = self.totals.get(rec.name)
+            if t is None:
+                t = self.totals[rec.name] = _Totals()
+            t.calls += 1
+            if rec.unit != t.last_unit:
+                t.units, t.last_unit = t.units + 1, rec.unit
+            host = rec.t1 - rec.t0
+            t.host_ns += host
+            t.host_self_ns += host - rec.child_host
+            t.parents.add(rec.parent.name if rec.parent else None)
+            if rec.events is not None:
+                rec.dev = rec.events[0].elapsed_time(rec.events[1])
+                self.spare.append(rec.events)
+                rec.stream = rec.events = None
+                t.dev_calls += 1
+                t.dev_ms += rec.dev
+                t.dev_self_ms += rec.dev - rec.child_dev
+                if rec.parent is not None:
+                    rec.parent.child_dev += rec.dev
+        del self.pending[:n]
+
+    def stats(self) -> Dict[str, Dict[str, object]]:
+        self.resolve(wait=True)
+        out: Dict[str, Dict[str, object]] = {}
+        for name, t in self.totals.items():
+            dev = t.dev_calls > 0
+            out[name] = {"calls": t.calls, "units": t.units,
+                         "host_ms": t.host_ns / 1e6, "host_self_ms": t.host_self_ns / 1e6,
+                         "device_ms": t.dev_ms if dev else None,
+                         "device_self_ms": t.dev_self_ms if dev else None,
+                         "parents": sorted(t.parents, key=lambda p: (p is not None, p or ""))}
+        out.update({name: {"count": n} for name, n in self.counters.items()})
+        return out
+
+
+class _Span:
+    __slots__ = ("name", "rf", "rec")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = None
+        if torch.autograd._profiler_enabled():  # a record only a profiler reads
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        self.rec = _TRACER.enter(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        _TRACER.exit(self.rec)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+_TRACER = SpanTracer()
+_tracing = False
+_timed = True
+_OFF = contextlib.nullcontext()
+_END = object()
+
+
+def span(name: str):
+    """A context manager that times the block as the span ``name`` while
+    tracing is on; while it is off, one shared null context.  Untimed, the
+    span is only its ``record_function`` under a profiler."""
+    if not _tracing:
+        return _OFF
+    if not _timed:
+        return torch.profiler.record_function(name) if torch.autograd._profiler_enabled() else _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the host-side counter ``name`` while tracing is on and
+    timed."""
+    if _tracing and _timed:
+        _TRACER.counters[name] = _TRACER.counters.get(name, 0) + n
+
+
+def set_tracing(on: bool, timed: bool = True) -> None:
+    """Turn the spans and counters on or off; turning them off keeps what
+    they recorded.  With ``timed`` false the spans only name their blocks
+    on a profiler's timeline: no clock read, no CUDA event, no record, and
+    none of the CUDA calls a profiler would see around the block's own."""
+    global _tracing, _timed
+    _tracing, _timed = bool(on), bool(timed)
+
+
+def tracing() -> bool:
+    return _tracing
+
+
+def reset_spans() -> None:
+    """Forget every record, total and counter."""
+    _TRACER.reset()
+
+
+def span_stats() -> Dict[str, Dict[str, object]]:
+    """By name, each span's ``calls``, ``units`` (the steps or calls it ran
+    in), ``host_ms`` and ``host_self_ms``, ``device_ms`` and
+    ``device_self_ms`` (None where no CUDA event was recorded) and
+    ``parents`` (the names of the spans it ran inside, None at the top);
+    each counter's ``count``.  Self is the total less the part of the
+    interval that the direct child spans cover.  Synchronises the device
+    where a record holds events."""
+    return _TRACER.stats()
+
+
+def spanned(items: Iterable, name: str) -> Iterator:
+    """``items``, each drawn under the span ``name`` (a loader's batches)."""
+    it = iter(items)
+    while True:
+        with span(name):
+            item = next(it, _END)
+        if item is _END:
+            return
+        yield item
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str]):
     """A ``torch.profiler`` trace of the block (host and, where there is a
     card, device activity), written as a Chrome trace into ``log_dir``
-    (``trace_<pid>_<ns>.json``); without ``log_dir`` the block runs as it
+    (``trace_<pid>_<ns>.json``), with the program's spans on for the block
+    and their table (:func:`span_stats`) beside it
+    (``spans_<pid>_<ns>.json``); without ``log_dir`` the block runs as it
     is."""
     if not log_dir:
         yield
@@ -76,9 +307,19 @@ def profile_trace(log_dir: Optional[str]):
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    was = (_tracing, _timed)
+    if not (was[0] and was[1]):
+        reset_spans()
+    set_tracing(True)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            yield
+    finally:
+        set_tracing(*was)
+    tag = f"{os.getpid()}_{time.time_ns()}"
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{tag}.json"))
+    with open(os.path.join(log_dir, f"spans_{tag}.json"), "w") as f:
+        json.dump(span_stats(), f, indent=1)
 
 
 def model_size_mb(tensors: Iterable[torch.Tensor]) -> float:

@@ -90,7 +90,7 @@ def test_metrics_match_jax(tmp_path):
 def test_device_metrics_without_a_card(tmp_path, monkeypatch):
     """No card here: device_timing raises rather than time the CPU, the
     memory stats are empty, max_batch_size needs the bytes; profile_trace
-    writes a Chrome trace that names the ops it saw."""
+    writes a Chrome trace that names the ops it saw, and the span table."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(ValueError):
         metrics.device_timing(lambda: None, device="cpu")
@@ -99,8 +99,10 @@ def test_device_metrics_without_a_card(tmp_path, monkeypatch):
         metrics.max_batch_size(10, 8, 8, (2,))
     with metrics.profile_trace(str(tmp_path / "prof")):
         torch.ones(64, 64).matmul(torch.ones(64, 64))
-    (trace,) = glob.glob(str(tmp_path / "prof" / "*.json"))
+    (trace,) = glob.glob(str(tmp_path / "prof" / "trace_*.json"))
     assert any("matmul" in e.get("name", "") for e in json.load(open(trace))["traceEvents"])
+    (table,) = glob.glob(str(tmp_path / "prof" / "spans_*.json"))
+    assert json.load(open(table)) == {}
     with metrics.profile_trace(None):
         pass
 
@@ -127,7 +129,8 @@ def test_profile_training_step_writes_a_trace(tmp_path):
     tr = SageTrainer(ds, TrainConfig(batch_size=32, fanouts=(2, 2), hidden_dim=8,
                                      num_layers=2, tt_ranks=(2, 2)), device="cpu")
     profiler.profile_training_step(tr, str(tmp_path), steps=2)
-    assert len(glob.glob(str(tmp_path / "*.json"))) == 1
+    assert len(glob.glob(str(tmp_path / "trace_*.json"))) == 1
+    assert len(glob.glob(str(tmp_path / "spans_*.json"))) == 1
 
 
 def test_cli_store_emb_rows_are_jax_rows(tmp_path):
@@ -157,7 +160,8 @@ def test_cli_profile_plot_and_eval_sampled(tmp_path, capsys):
                                 "--profile-dir", str(prof), "--plot", "--access-counts",
                                 "--log-dir", str(logs)])
     assert set(best) == {"val_acc", "test_acc", "epoch"}
-    assert len(glob.glob(str(prof / "*.json"))) == 1
+    assert len(glob.glob(str(prof / "trace_*.json"))) == 1
+    assert len(glob.glob(str(prof / "spans_*.json"))) == 1
     assert os.path.exists(logs / "access_cdf.png") == (metrics._pyplot() is not None)
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["best"] == best
 

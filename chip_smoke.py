@@ -239,6 +239,9 @@ LOGICAL_SHARDS = 4         # the ragged layout's shards consumed in one process
 TT_SOURCE = "falcon_ttdforgnns_torch/csrc/tt_kernels.cu"
 SPMM_SOURCE = "falcon_ttdforgnns_torch/csrc/spmm_kernels.cu"
 TOWER_SOURCE = "falcon_ttdforgnns_torch/csrc/tower_kernels.cu"
+# csr_mean_f32 against the card's chunked index_add_ over the whole graph:
+# max |diff| over max |plain|, f32 reassociation alone (~4e-7 at products)
+CSR_MEAN_REL_TOL = 1e-6
 TT_PALLAS = "falcon_ttdforgnns_tpu/ops/tt_pallas.py"
 REPLACES = {  # the TPU kernel each one ports (its def line)
     "tt_fwd": f"{TT_PALLAS}:255", "tt_fwd[bf16]": f"{TT_PALLAS}:255",
@@ -257,7 +260,11 @@ REPLACES = {  # the TPU kernel each one ports (its def line)
     "fanout_mean_bf16[bwd]": "falcon_ttdforgnns_tpu/models/sage.py:185",
     # no TPU kernel either: the XLA segment sum of the reference's bf16
     # full-graph mean (spmm_mean), which this kernel reproduces bit for bit
-    "segment_mean_bf16": "falcon_ttdforgnns_tpu/ops/segment.py:69"}
+    "segment_mean_bf16": "falcon_ttdforgnns_tpu/ops/segment.py:69",
+    # no TPU kernel either: the XLA gather and scatter-add of the reference's
+    # f32 full-graph mean (the same spmm_mean), which this kernel sums in
+    # edge order
+    "csr_mean_f32": "falcon_ttdforgnns_tpu/ops/segment.py:69"}
 ARXIV = dict(p_shapes=(50, 60, 60), q_shapes=(8, 4, 4), tt_ranks=(16, 16))  # the arxiv preset
 
 
@@ -1479,7 +1486,7 @@ def finish_torchrun_cli(job) -> None:
             raise AssertionError(f"the torchrun CLI run failed ({proc.returncode}):\n"
                                  f"{err[-3000:]}")
         best = json.loads(out.strip().splitlines()[-1])
-        traces = sorted(glob.glob(f"{tmp}/prof/*.json"))
+        traces = sorted(glob.glob(f"{tmp}/prof/trace_*.json"))  # not the spans_*.json
         named = []
         for t in traces:
             with open(t) as f:
@@ -1775,10 +1782,11 @@ def main_path_phase(ds, config, K, dev, counts) -> list:
     del mixed
     chunk_sweep(K, trainer.shapes, main_ids, dev)
     del main_ids
-    log("evaluate() under bf16: full-graph propagation over every node and edge (the bf16 "
-        "means of layers 2 and 3 through segment_mean_bf16)")
+    log("evaluate() under bf16: full-graph propagation over every node and edge (layer 1's "
+        "f32 mean through csr_mean_f32, the bf16 means of layers 2 and 3 through "
+        "segment_mean_bf16)")
     full_accs, counts["bf16 evaluate"] = checked_evaluate(
-        trainer, "bf16 evaluate", must_launch=("tt_fwd", "segment_mean_bf16"))
+        trainer, "bf16 evaluate", must_launch=("tt_fwd", "csr_mean_f32", "segment_mean_bf16"))
     flagship_tools_phase(trainer, ds, full_accs, dev, counts)
     del trainer
     torch.cuda.empty_cache()
@@ -2780,7 +2788,9 @@ def segment_kernel_check(ds, dev) -> dict:
     N(0, 3e4^2); then timed over the whole graph (evaluate's shape) at
     D = 256 and 100, beside its plain version and, as another function,
     the chunked index_add_ that evaluate ran before (f32 accumulation).
-    Returns its JSON results (D = 256)."""
+    Then the same for csr_mean_f32, the f32 mean of a bf16 evaluate's
+    first layer (:func:`csr_mean_check`).  Returns its JSON results
+    (segment_mean_bf16 at D = 256, csr_mean_f32 at D = 100)."""
     import torch
     from falcon_ttdforgnns_torch.ops import segment
     g, n = ds.graph, ds.num_nodes
@@ -2833,6 +2843,73 @@ def segment_kernel_check(ds, dev) -> dict:
             res["segment_mean_bf16"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                                             bound_ms=bound, bound_by=by, library_ms=None,
                                             index_add_ms=add_ms)
+    res.update(csr_mean_check(g, (s_src, s_ptr, s_deg), (src, indptr, deg, dst), gen, dev))
+    return res
+
+
+def csr_mean_check(g, rows_slice, rows_all, gen, dev) -> dict:
+    """csr_mean_f32 (the f32 full-graph mean: layer 1 of the bf16 evaluate
+    at D = 100, the f32 evaluate's layers at 100 and 256) against its plain
+    version on the CPU (an index_add_ that adds in edge order) bit for bit
+    on segment_kernel_check's slice of rows, its h aligned and one float
+    past a 16-byte boundary (the scalar path); then timed over the whole
+    graph beside its plain version on the card (one call, host clock) and
+    the chunked index_add_ path evaluate ran before, each with its
+    division by the degree; over the whole graph the two sum in different
+    orders, so they must agree to f32 reassociation (max |diff| at most
+    CSR_MEAN_REL_TOL of max |plain|; a dropped or doubled edge in a row of
+    in-degree k reads about 0.5 / k).  Returns its JSON results (D = 100)."""
+    import torch
+    from falcon_ttdforgnns_torch.ops import segment
+    n = g.num_nodes
+    s_src, s_ptr, s_deg = rows_slice
+    src, indptr, deg, dst = rows_all
+    cpu = [t.cpu() for t in rows_slice]
+    for d in (100, 256):
+        h = torch.randn(n, d, generator=gen, device=dev)
+        buf = torch.empty(n * d + 1, device=dev)
+        buf[1:] = h.reshape(-1)
+        want = segment.csr_mean_f32_plain(h.cpu(), *cpu)
+        for label, x in (("aligned", h), ("one float past 16 bytes", buf[1:].view(n, d))):
+            got = segment.csr_mean_f32(x, s_src, s_ptr, s_deg).cpu()
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"csr_mean_f32 at D={d}, h {label}: not bit-identical to "
+                                     f"its plain version on the CPU")
+        del buf, want, got
+    log(f"  csr_mean_f32 bit-identical to its plain version on the CPU on the same rows, "
+        f"D = 100 and 256, h aligned and one float past 16 bytes")
+    degc = deg.clamp(min=1.0)[:, None]
+    res = {}
+    for d in (100, 256):
+        h = torch.randn(n, d, generator=gen, device=dev)
+        reset_counts()
+        ms = cuda_ms(lambda: segment.csr_mean_f32(h, src, indptr, deg), 5)
+        launches = launched().get("csr_mean_f32", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = segment.csr_mean_f32_plain(h, src, indptr, deg)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        chunked_ms = cuda_ms(lambda: segment.spmm_sum_chunked(h, src, dst, n) / degc, 3)
+        got = segment.csr_mean_f32(h, src, indptr, deg)
+        abs_err = float((got - plain).abs().max())
+        err = abs_err / float(plain.abs().max())
+        del plain, got
+        if not err <= CSR_MEAN_REL_TOL:
+            raise AssertionError(f"csr_mean_f32 over the whole graph at D={d}: max |diff| "
+                                 f"{err:.2e} of max |plain|, above {CSR_MEAN_REL_TOL}")
+        E = src.numel()
+        bound, by = bound_ms(8 * n * d + 8 * E + 8 * (n + 1) + 4 * n, E * d + n * d)
+        log(f"  csr_mean_f32 over all {n} rows and {E} edges, D = {d}: {ms:.3f} ms "
+            f"({launches} launches in the timing; {4 * E * d / ms / 1e6:.0f} GB/s of row "
+            f"gathers), plain version {plain_ms:.1f} ms (one call, host clock; max |diff| "
+            f"{abs_err:.2e}, {err:.1e} of max |plain|, limit {CSR_MEAN_REL_TOL}; its atomic "
+            f"adds in no order), bound {bound:.4f} ms by {by}; the "
+            f"chunked index_add_ path it replaced {chunked_ms:.3f} ms")
+        if d == 100:
+            res["csr_mean_f32"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound, bound_by=by, library_ms=None,
+                                       index_add_ms=chunked_ms)
     return res
 
 
@@ -2918,7 +2995,7 @@ def finish_cli_flags(job) -> None:
         if proc.returncode != 0:
             raise AssertionError(f"the CLI's flags run failed ({proc.returncode}):\n{err[-3000:]}")
         best = json.loads(out.strip().splitlines()[-1])
-        traces = sorted(glob.glob(f"{tmp}/prof/*.json"))
+        traces = sorted(glob.glob(f"{tmp}/prof/trace_*.json"))  # not the spans_*.json
         named = [all(k in open(t).read() for k in ("tt_fwd_kernel", "tt_grads_kernel"))
                  for t in traces]
         embs = glob.glob(f"{tmp}/ck/emb_*.npy")
@@ -3301,7 +3378,8 @@ def main() -> int:
     finish_cli_flags(cli_job)
     log("the bf16 fan-out mean's kernels against their plain versions:")
     tower_res = tower_kernel_check(dev)
-    log("the bf16 full-graph mean's kernel (C2) against its plain version:")
+    log("the full-graph means' kernels (C2's bf16, the f32 one) against their plain "
+        "versions:")
     tower_res.update(segment_kernel_check(ds, dev))
     torch.cuda.empty_cache()
     log("tt_fwd, tt_fwd_sr and tt_grads at every rank of the tuner's box (C3):")
@@ -3375,8 +3453,9 @@ def main() -> int:
             tr = SageTrainer(ds, config(**kw), device=dev)
             counts[key] = counted_steps(tr, other_b, key, must)
         if key == "f32":
-            log("evaluate() in f32 (--spmm xla: index_add_)")
-            xla_accs, _ = checked_evaluate(tr, "f32 evaluate")
+            log("evaluate() in f32 (--spmm xla: csr_mean_f32)")
+            xla_accs, _ = checked_evaluate(tr, "f32 evaluate",
+                                           must_launch=("tt_fwd", "csr_mean_f32"))
             f32_state = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
         del tr
         torch.cuda.empty_cache()
@@ -3406,10 +3485,10 @@ def main() -> int:
                "spmm_tile_partials[bf16]": "kernel phase",
                "spmm_gather": "full-graph gcn blocked",
                "fanout_mean_bf16": "main", "fanout_mean_bf16[bwd]": "main",
-               "segment_mean_bf16": "bf16 evaluate"}
+               "segment_mean_bf16": "bf16 evaluate", "csr_mean_f32": "bf16 evaluate"}
     kernels = [{"name": n, "route": "cuda",
                 "source": (TT_SOURCE if n.startswith("tt_") else TOWER_SOURCE
-                           if n.startswith(("fanout_", "segment_")) else SPMM_SOURCE),
+                           if n.startswith(("fanout_", "segment_", "csr_")) else SPMM_SOURCE),
                 "replaces": REPLACES[n], "launches": counts[path_of[n]][n],
                 "launched_by": path_of[n],
                 "max_abs_err": res[n]["max_abs_err"], "ms": res[n]["ms"],

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) kernels of the bf16 means: the SAGE conv tower's fan-out
-// mean and its backward, and the full-graph mean over each row's in-edges.
+// Hopper (sm_90a) kernels of the means: the SAGE conv tower's bf16 fan-out
+// mean and its backward, and the full-graph means over each row's in-edges,
+// bf16 and f32.
 // Built by nvcc into a shared library with a plain C interface and loaded
 // through ctypes (falcon_ttdforgnns_torch/ops/_build.py); the Python
 // wrappers live in ops/tower.py and ops/segment.py next to their plain
@@ -9,7 +10,9 @@
 // reductions, and XLA rounds every partial sum of a bf16 reduction to bf16.
 // PyTorch's bf16 mean and index_add_ accumulate in f32 and round once,
 // which differs in about half the outputs; these kernels give the
-// reference's bits in one launch each.
+// reference's bits in one launch each.  The f32 full-graph mean has no
+// such rounding to keep: its kernel reads each row's in-edges where they
+// lie instead of materialising the chunked scatter's messages.
 //
 // fanout_mean_bf16 (jnp.mean(axis=2, dtype=bfloat16) in models/sage.py):
 //   x (rows, f, d) bf16 -> out (rows, d) bf16,
@@ -47,6 +50,37 @@
 //   fan-out mean's, one thread per (row, column pair) on a 1-D grid, so
 //   the threads of one row read one gathered h row coalesced (the row's
 //   src[e] a broadcast); each thread walks its row's edges in order.
+//
+// csr_mean_f32 (ops/segment.py:spmm_mean of an f32 h that needs no
+//   gradient: layer 1 of a bf16 evaluate, where the lookup's rows are f32,
+//   and every layer of an f32 one; the JAX package's f32 spmm_mean, an XLA
+//   gather and scatter-add):
+//   h (n_h, d) f32, src (E,) int64 grouped by destination row, indptr
+//   (N + 1,) int64, deg (N,) f32 -> out (N, d) f32,
+//   acc = +0; acc = acc + h[src[e]] for e = indptr[v] .. indptr[v + 1] - 1
+//   in that order; out[v] = acc / max(deg[v], 1) (IEEE division: the
+//   build has no fast math).  The sum of the chunked index_add_ it
+//   replaces, each row's in edge order where the atomic scatter has none,
+//   so it equals an index_add_ on the CPU bit for bit.  The two full-graph
+//   means round differently, so each dtype has its kernel, not one kernel
+//   with a mode.
+// Bound on H100: bytes, h and the output (4 n d each), src (8 E), indptr
+//   (8 (N + 1)) and deg (4 N) once each: at ogbn-products and d = 100
+//   about 2.97 GB, 0.886 ms at 3.35 TB/s.  The gathers read one 400 B h
+//   row per edge, 49 GB of random rows in a 980 MB table that no L2 holds,
+//   so the practical floor is that traffic at the rate segment_mean_bf16
+//   reaches (~2.8 TB/s, ~17.5 ms).  Design: one thread per (row, 16-byte
+//   column group) on a 1-D grid where d % 4 == 0 and h and out are 16-byte
+//   aligned (d = 100 is 25 float4 groups, so the lanes of one row read a
+//   gathered 400 B row in one coalesced sweep, and every lane of a warp is
+//   busy: a row's groups run on into the next row's), else one thread per
+//   value.  The threads of a row read the same src[e], one transaction a
+//   warp.  A thread loads the h rows of kAhead edges before it adds any, so
+//   each thread keeps kAhead independent gathers in flight (random reads
+//   bound by HBM latency need bytes in flight), then adds them in edge
+//   order.  The grid is as many blocks as stay resident (the occupancy
+//   query), each striding over the work, so no second wave of blocks
+//   starts late.
 
 #include <cstdint>
 
@@ -165,15 +199,71 @@ __global__ void __launch_bounds__(kThreads) segment_mean_scalar(
   }
 }
 
-// Blocks of kThreads for `work` items: enough for 8 blocks an SM, no more
-// than the work needs.
-int grid_for(long long work) {
-  const long long need = (work + kThreads - 1) / kThreads;
-  const long long cap = 8LL * sm_count();
-  return static_cast<int>(need < cap ? need : cap);
+// out (N, d) from f32 h, walking each row's in-edges kAhead at a time: a
+// thread per (row, float4 group) with V = float4 (q = d / 4 groups a row),
+// else per value with V = float (q = d).
+constexpr int kAhead = 4;
+
+__device__ __forceinline__ void add_in(float& acc, float x) { acc = acc + x; }
+
+__device__ __forceinline__ void add_in(float4& acc, const float4& x) {
+  acc.x = acc.x + x.x;
+  acc.y = acc.y + x.y;
+  acc.z = acc.z + x.z;
+  acc.w = acc.w + x.w;
+}
+
+__device__ __forceinline__ float div_by(float acc, float den) { return acc / den; }
+
+__device__ __forceinline__ float4 div_by(const float4& acc, float den) {
+  return make_float4(acc.x / den, acc.y / den, acc.z / den, acc.w / den);
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads) csr_mean_f32_rows(
+    const V* __restrict__ h, const long long* __restrict__ src,
+    const long long* __restrict__ indptr, const float* __restrict__ deg, long long n_out,
+    int q, V* __restrict__ out) {
+  for (long long o = (long long)blockIdx.x * kThreads + threadIdx.x; o < n_out;
+       o += (long long)gridDim.x * kThreads) {
+    const long long v = o / q;
+    const int c = static_cast<int>(o - v * q);
+    const long long hi = indptr[v + 1];
+    long long e = indptr[v];
+    V acc{};  // +0 in every lane
+    for (; e + kAhead <= hi; e += kAhead) {
+      V x[kAhead];
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) x[k] = h[src[e + k] * q + c];
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) add_in(acc, x[k]);
+    }
+    for (; e < hi; ++e) add_in(acc, h[src[e] * q + c]);
+    out[o] = div_by(acc, fmaxf(deg[v], 1.f));
+  }
 }
 
 bool aligned4(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 3) == 0; }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Blocks of kThreads for `work` items of `kernel`, whose threads stride
+// over the work: as many as stay resident at once on the card (the
+// occupancy query, asked once a kernel; 8 an SM, 2048 threads, where it
+// cannot say), no more than the work needs.  A kernel of more than 32
+// registers a thread fits fewer than 8 blocks an SM, and a grid of 8 an SM
+// would leave its last blocks to a second wave on a few SMs.
+template <auto kernel>
+int grid_resident(long long work) {
+  static const int per_sm = [] {
+    int n = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, 0) ==
+                   cudaSuccess && n > 0 ? n : 8;
+  }();
+  const long long need = (work + kThreads - 1) / kThreads;
+  const long long cap = static_cast<long long>(per_sm) * sm_count();
+  return static_cast<int>(need < cap ? need : cap);
+}
 
 }  // namespace
 
@@ -190,12 +280,12 @@ int fanout_mean_bf16(const void* x, long long rows, int f, int d, void* out, voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d % 2 == 0 && aligned4(x) && aligned4(out)) {
     const long long pairs = rows * (d / 2);
-    fanout_mean_pairs<<<grid_for(pairs), kThreads, 0, st>>>(
+    fanout_mean_pairs<<<grid_resident<fanout_mean_pairs>(pairs), kThreads, 0, st>>>(
         static_cast<const __nv_bfloat162*>(x), pairs, d / 2, f,
         static_cast<__nv_bfloat162*>(out));
   } else {
     const long long n_out = rows * d;
-    fanout_mean_scalar<<<grid_for(n_out), kThreads, 0, st>>>(
+    fanout_mean_scalar<<<grid_resident<fanout_mean_scalar>(n_out), kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), n_out, d, f, static_cast<__nv_bfloat16*>(out));
   }
   return cudaGetLastError();
@@ -208,12 +298,12 @@ int fanout_mean_bf16_bwd(const void* g, long long rows, int f, int d, void* dx, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d % 2 == 0 && aligned4(g) && aligned4(dx)) {
     const long long pairs = rows * (d / 2);
-    fanout_mean_bwd_pairs<<<grid_for(pairs), kThreads, 0, st>>>(
+    fanout_mean_bwd_pairs<<<grid_resident<fanout_mean_bwd_pairs>(pairs), kThreads, 0, st>>>(
         static_cast<const __nv_bfloat162*>(g), pairs, d / 2, f,
         static_cast<__nv_bfloat162*>(dx));
   } else {
     const long long n_in = rows * d;
-    fanout_mean_bwd_scalar<<<grid_for(n_in), kThreads, 0, st>>>(
+    fanout_mean_bwd_scalar<<<grid_resident<fanout_mean_bwd_scalar>(n_in), kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(g), n_in, d, f, static_cast<__nv_bfloat16*>(dx));
   }
   return cudaGetLastError();
@@ -232,14 +322,39 @@ int segment_mean_bf16(const void* h, const void* src, const void* indptr, const 
   const float* dg = static_cast<const float*>(deg);
   if (d % 2 == 0 && aligned4(h) && aligned4(out)) {
     const long long pairs = n * (d / 2);
-    segment_mean_pairs<<<grid_for(pairs), kThreads, 0, st>>>(
+    segment_mean_pairs<<<grid_resident<segment_mean_pairs>(pairs), kThreads, 0, st>>>(
         static_cast<const __nv_bfloat162*>(h), s, ip, dg, pairs, d / 2,
         static_cast<__nv_bfloat162*>(out));
   } else {
     const long long n_out = n * d;
-    segment_mean_scalar<<<grid_for(n_out), kThreads, 0, st>>>(
+    segment_mean_scalar<<<grid_resident<segment_mean_scalar>(n_out), kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(h), s, ip, dg, n_out, d,
         static_cast<__nv_bfloat16*>(out));
+  }
+  return cudaGetLastError();
+}
+
+// h (n_h, d) f32 contiguous, src (E,) int64 in row order, indptr (N + 1,)
+// int64, deg (N,) f32 -> out (N, d) f32.  The caller checks that src and
+// indptr index inside h and src.
+int csr_mean_f32(const void* h, const void* src, const void* indptr, const void* deg,
+                 long long n, int d, void* out, void* stream) {
+  if (n < 0 || d <= 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* s = static_cast<const long long*>(src);
+  const long long* ip = static_cast<const long long*>(indptr);
+  const float* dg = static_cast<const float*>(deg);
+  if (d % 4 == 0 && aligned16(h) && aligned16(out)) {
+    const long long n_out = n * (d / 4);
+    csr_mean_f32_rows<float4><<<grid_resident<csr_mean_f32_rows<float4>>(n_out), kThreads, 0,
+                                st>>>(
+        static_cast<const float4*>(h), s, ip, dg, n_out, d / 4, static_cast<float4*>(out));
+  } else {
+    const long long n_out = n * d;
+    csr_mean_f32_rows<float><<<grid_resident<csr_mean_f32_rows<float>>(n_out), kThreads, 0,
+                               st>>>(
+        static_cast<const float*>(h), s, ip, dg, n_out, d, static_cast<float*>(out));
   }
   return cudaGetLastError();
 }

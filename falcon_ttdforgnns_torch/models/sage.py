@@ -25,7 +25,7 @@ from torch import nn
 from ..nn.layers import SAGEConv, dropout
 from ..nn.tt_embedding import (AccessCountingEmbedding, DenseEmbedding,
                                FixedFeatureEmbedding, TTEmbeddingBag)
-from ..ops.segment import spmm_mean
+from ..ops.segment import edges_by_row, spmm_mean
 from ..ops.tower import fanout_mean_bf16
 from ..utils.metrics import span
 
@@ -156,13 +156,18 @@ class SAGE(nn.Module):
         """Logits of every node by full-graph propagation (exact
         aggregation over every edge).  Each conv keeps its dtype here, as
         the JAX convs do: under ``bf16`` the activations after the first
-        conv, their SpMM and the logits are bf16."""
-        ids = torch.arange(self.num_nodes, dtype=torch.int32, device=src.device)
+        conv, their SpMM and the logits are bf16.  Without a gradient the
+        edges' row index is built once, in the first layer's aggregation,
+        and serves every layer."""
         with span("embed.lookup"):
-            h = self.embed(ids, count_accesses=train)
+            h = self.embed(torch.arange(self.num_nodes, dtype=torch.int32, device=src.device),
+                           count_accesses=train)
+        rows = None
         for li, conv in enumerate(self.convs):
             with span("spmm.aggregate"):
-                agg = spmm_mean(h, src, dst, self.num_nodes, in_deg, chunk=chunk)
+                if li == 0 and not torch.is_grad_enabled():
+                    rows = edges_by_row(src, dst, self.num_nodes)
+                agg = spmm_mean(h, src, dst, self.num_nodes, in_deg, chunk=chunk, rows=rows)
             with span("tower.conv"):
                 h = conv(h, agg)
                 if li < self.num_layers - 1:
@@ -178,11 +183,12 @@ class SAGE(nn.Module):
 
     def forward_full(self, h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                      in_deg: torch.Tensor, num_nodes: int, layer_idx: int,
-                     chunk: int = 1 << 22) -> torch.Tensor:
+                     chunk: int = 1 << 22, rows: Optional[tuple] = None) -> torch.Tensor:
         """One conv layer over the full graph (layer-wise inference): the
-        mean over every in-edge, then the conv."""
+        mean over every in-edge (through ``rows``, the edges' row index,
+        where given), then the conv."""
         with span("spmm.aggregate"):
-            agg = spmm_mean(h, src, dst, num_nodes, in_deg, chunk=chunk)
+            agg = spmm_mean(h, src, dst, num_nodes, in_deg, chunk=chunk, rows=rows)
         return self.apply_conv(h, agg, layer_idx)
 
     def materialize_features(self, node_ids: torch.Tensor) -> torch.Tensor:

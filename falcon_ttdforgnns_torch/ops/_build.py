@@ -56,6 +56,7 @@ _SIGNATURES: Dict[str, Dict[str, list]] = {
         "fanout_mean_bf16": [_p, _ll, _i, _i, _p, _p],
         "fanout_mean_bf16_bwd": [_p, _ll, _i, _i, _p, _p],
         "segment_mean_bf16": [_p, _p, _p, _p, _ll, _i, _p, _p],
+        "csr_mean_f32": [_p, _p, _p, _p, _ll, _i, _p, _p],
     },
 }
 _ERROR_STRING = {"tt_kernels": "tt_error_string", "spmm_kernels": "spmm_error_string",

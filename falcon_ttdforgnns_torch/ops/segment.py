@@ -16,6 +16,15 @@ order and rounds as XLA does, beside its plain version
 wrapper runs the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises.  Every launch adds one to its
 entry in :func:`launch_counts`.
+
+An f32 ``h`` that needs no gradient (layer 1 of the ``--bf16`` evaluate,
+whose lookup rows are f32, and every layer of an f32 one) goes through
+:func:`csr_mean_f32`, the wrapper of ``csr_mean_f32`` (the same source),
+which sums each row's in-edges in edge order where they lie instead of
+materialising the chunked scatter's (chunk, D) messages; its plain version
+:func:`csr_mean_f32_plain` is that scatter in edge order.  Both forward-only
+means read the row index :func:`edges_by_row`, which a full-graph forward
+builds once and hands to every layer.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ HEADED_SPMM_CHUNK = 1 << 19  # headed_spmm
 # a bf16 count of ones stops here: 256 + 1 rounds (to even) back to 256
 BF16_COUNT_MAX = 256
 
-KERNELS = ("segment_mean_bf16",)
+KERNELS = ("segment_mean_bf16", "csr_mean_f32")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -99,21 +108,24 @@ def spmm_sum_chunked(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 
 
 def edges_by_row(src: torch.Tensor, dst: torch.Tensor,
-                 num_nodes: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                 num_nodes: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The COO edges as CSR rows of their destinations: (src in row order,
-    indptr (num_nodes + 1,) int64, each row's in-degree).  Each row keeps
-    its edges in their COO order: ``CSRGraph.to_coo()`` edges, whose dst is
-    non-decreasing, are taken as they are, others by a stable sort.  The
-    order check reads one value into the host (``spmm.host_reads``)."""
-    if dst.numel() > 1:
-        count("spmm.host_reads")
-        if bool((dst[1:] < dst[:-1]).any()):
-            dst, order = torch.sort(dst, stable=True)
-            src = src.index_select(0, order)
-    counts = torch.bincount(dst, minlength=num_nodes)
-    indptr = torch.zeros(num_nodes + 1, dtype=torch.int64, device=dst.device)
-    torch.cumsum(counts, 0, out=indptr[1:])
-    return src.long().contiguous(), indptr, counts
+    indptr (num_nodes + 1,) int64, whose ``diff()`` is each row's
+    in-degree).  Each row keeps its edges in their COO order:
+    ``CSRGraph.to_coo()`` edges, whose dst is non-decreasing, are taken as
+    they are, others by a stable sort.  The order check reads one value
+    into the host (``spmm.host_reads``); the whole build is the span
+    ``spmm.rows``."""
+    with span("spmm.rows"):
+        if dst.numel() > 1:
+            count("spmm.host_reads")
+            if bool((dst[1:] < dst[:-1]).any()):
+                dst, order = torch.sort(dst, stable=True)
+                src = src.index_select(0, order)
+        counts = torch.bincount(dst, minlength=num_nodes)
+        indptr = torch.zeros(num_nodes + 1, dtype=torch.int64, device=dst.device)
+        torch.cumsum(counts, 0, out=indptr[1:])
+        return src.long().contiguous(), indptr
 
 
 def segment_mean_bf16_plain(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
@@ -173,25 +185,91 @@ def segment_mean_bf16(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
     return out
 
 
+def csr_mean_f32_plain(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
+                       deg: torch.Tensor) -> torch.Tensor:
+    """(N, D) f32 mean of each row's in-edges: ``acc = acc + h[src[e]]``
+    over the row's edges ``indptr[v] .. indptr[v+1] - 1`` in order from +0,
+    then ``acc / max(deg[v], 1)``.  An ``index_add_`` of the edges in row
+    order, chunk by chunk, which on the CPU adds its indices in turn, so
+    each row's sum runs in edge order; on the card its atomic adds keep no
+    order, so the kernel is held to this version on the CPU."""
+    n = indptr.shape[0] - 1
+    rows = torch.repeat_interleave(torch.arange(n, device=h.device), indptr.diff(),
+                                   output_size=src.shape[0])
+    acc = _scatter_chunked(h, src, rows, n, None, SPMM_CHUNK)
+    return acc / torch.clamp(deg.to(torch.float32), min=1.0)[:, None]
+
+
+def csr_mean_f32(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
+                 deg: torch.Tensor) -> torch.Tensor:
+    """The kernel's wrapper: h (n_h, D) f32, src (E,) int64 in row order,
+    indptr (N + 1,) int64, deg (N,) -> (N, D) f32 (see
+    :func:`csr_mean_f32_plain`).  Forward only.  Its bound checks read
+    one set of values into the host (``spmm.host_reads``)."""
+    if h.dtype != torch.float32:
+        raise TypeError(f"csr_mean_f32 takes float32, not {h.dtype}")
+    if h.requires_grad and torch.is_grad_enabled():
+        raise ValueError("csr_mean_f32 is forward only")
+    if {t.device.type for t in (h, src, indptr, deg)} == {"cpu"}:
+        return csr_mean_f32_plain(h, src, indptr, deg)
+    if len({t.device for t in (h, src, indptr, deg)}) != 1 or h.device.type != "cuda":
+        raise ValueError(f"csr_mean_f32 takes tensors on one CUDA device or on the CPU, "
+                         f"got {h.device}, {src.device}, {indptr.device}, {deg.device}")
+    n = indptr.shape[0] - 1
+    if src.dtype != torch.int64 or indptr.dtype != torch.int64 or src.dim() != 1 or n < 0:
+        raise TypeError("csr_mean_f32: src and indptr are 1-D int64")
+    if deg.shape != (n,):
+        raise ValueError(f"csr_mean_f32: deg of shape {tuple(deg.shape)}, expected ({n},)")
+    count("spmm.host_reads")
+    first, last, *lim = torch.stack([indptr[0], indptr[-1],
+                                     *(torch.aminmax(src) if src.numel() else ())]).tolist()
+    if first != 0 or last != src.shape[0] or (lim and (lim[0] < 0 or lim[1] >= h.shape[0])):
+        raise ValueError("csr_mean_f32: indptr must span src, and src index rows of h")
+    h, src, indptr = h.contiguous(), src.contiguous(), indptr.contiguous()
+    deg = deg.to(torch.float32).contiguous()
+    out = torch.empty((n, h.shape[1]), dtype=torch.float32, device=h.device)
+    rc = _build.library("tower_kernels").csr_mean_f32(
+        h.data_ptr(), src.data_ptr(), indptr.data_ptr(), deg.data_ptr(), n, h.shape[1],
+        out.data_ptr(), _build.current_stream(h.get_device()))
+    _build.check(rc, "csr_mean_f32", "tower_kernels")
+    if n:
+        _launches["csr_mean_f32"] += 1
+    return out
+
+
 def spmm_mean(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
               num_nodes: int, in_deg: Optional[torch.Tensor] = None,
-              chunk: int = SPMM_CHUNK) -> torch.Tensor:
+              chunk: int = SPMM_CHUNK,
+              rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """Mean aggregation: sum / in-degree (degree from dst if not given).
 
-    A bf16 ``h`` gives the JAX package's bf16 result bit for bit: each
-    row's sum in edge order with a bf16 rounding after every add
-    (:func:`segment_mean_bf16`, whatever ``chunk``: the reference's chunks
-    keep that order), divided by the degree cast to bf16, counted as a bf16
-    sum of ones (so at most 256) where none is given.  That path is
-    forward only (evaluation); the f32 path has the transposed sum as its
-    backward."""
-    if h.dtype == torch.bfloat16:
-        if h.requires_grad and torch.is_grad_enabled():
-            raise ValueError("the bf16 spmm_mean is forward only; train full-graph in f32")
-        with span("spmm.rows"):
-            src, indptr, counts = edges_by_row(src, dst, num_nodes)
+    Where a bf16 or f32 ``h`` needs no gradient the mean walks the row
+    index ``rows``, :func:`edges_by_row` of the same edges (built here
+    where none is given), whatever ``chunk``:
+
+    - a bf16 ``h`` gives the JAX package's bf16 result bit for bit: each
+      row's sum in edge order with a bf16 rounding after every add
+      (:func:`segment_mean_bf16`; the reference's chunks keep that order),
+      divided by the degree cast to bf16, counted as a bf16 sum of ones
+      (so at most 256) where none is given;
+    - an f32 ``h`` sums each row in edge order in f32
+      (:func:`csr_mean_f32`) and divides by the degree, the full count
+      where none is given.
+
+    An f32 ``h`` that needs its gradient takes the chunked scatter, with
+    the transposed sum as its backward; a bf16 one raises (train
+    full-graph in f32)."""
+    if h.dtype == torch.bfloat16 and h.requires_grad and torch.is_grad_enabled():
+        raise ValueError("the bf16 spmm_mean is forward only; train full-graph in f32")
+    if h.dtype in (torch.bfloat16, torch.float32) and not (
+            h.requires_grad and torch.is_grad_enabled()):
+        src, indptr = edges_by_row(src, dst, num_nodes) if rows is None else rows
         if in_deg is None:
-            in_deg = torch.clamp(counts, max=BF16_COUNT_MAX)
+            in_deg = indptr.diff()
+            if h.dtype == torch.bfloat16:
+                in_deg = torch.clamp(in_deg, max=BF16_COUNT_MAX)
+        if h.dtype == torch.float32:
+            return csr_mean_f32(h, src, indptr, in_deg)
         return segment_mean_bf16(h, src, indptr, in_deg)
     s = spmm_sum_chunked(h, src, dst, num_nodes, chunk=chunk)
     if in_deg is None:

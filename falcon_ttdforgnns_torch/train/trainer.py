@@ -118,6 +118,7 @@ from ..graph.device_sampler import (build_neighbor_table, device_sample_block,
 from ..graph.sampler import NeighborLoader, sample_block
 from ..models.sage import SAGE, collect_level_ids
 from ..nn.tt_embedding import AccessCountingEmbedding
+from ..ops.segment import edges_by_row
 from ..ops.spmm_blocked import (build_window_tiles, chunk_tiles_host,
                                 default_blocked_tiling, spmm_sum_blocked_dev)
 from ..ops.spmm_tiled import auto_tile_edges, build_spmm_tiles_uniform, spmm_sum_tiled_uniform
@@ -937,12 +938,17 @@ class SageTrainer:
 
     def _layerwise(self, h: torch.Tensor, route: str) -> torch.Tensor:
         """Every conv layer over the full graph from the features ``h``: the
-        mean aggregation through ``route``'s SpMM, then the conv."""
+        mean aggregation through ``route``'s SpMM, then the conv.  The
+        ``xla`` route builds the edges' row index once for every layer
+        where no gradient is taken."""
         src, dst, deg, *_ = self._eval_graph()
         if route == "xla":
+            with span("spmm.aggregate"):
+                rows = (None if torch.is_grad_enabled()
+                        else edges_by_row(src, dst, self.ds.num_nodes))
             for li in range(self.cfg.num_layers):
                 h = self.model.forward_full(h, src, dst, deg, self.ds.num_nodes, li,
-                                            chunk=self.cfg.edge_chunk)
+                                            chunk=self.cfg.edge_chunk, rows=rows)
             return h
         spmm = self.full_graph_spmm(route)
         degc = torch.clamp(deg, min=1.0)[:, None]

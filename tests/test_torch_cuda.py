@@ -1195,7 +1195,7 @@ def test_segment_mean_bf16_kernel_bit_identical(cuda, d):
     dst = torch.tensor(np.repeat(np.arange(n), deg), device=cuda)
     src = torch.tensor(rng.integers(0, n, int(deg.sum())), device=cuda)
     degf = torch.tensor(deg.astype(np.float32), device=cuda)
-    s, indptr, _ = segment.edges_by_row(src, dst, n)
+    s, indptr = segment.edges_by_row(src, dst, n)
     for scale in (1.0, 3e4):
         h = (torch.randn(n, d, device=cuda) * scale).to(torch.bfloat16)
         got = segment.segment_mean_bf16(h, s, indptr, degf)
@@ -1205,6 +1205,79 @@ def test_segment_mean_bf16_kernel_bit_identical(cuda, d):
     with torch.no_grad():
         out = segment.spmm_mean(h, src, dst, n)
     assert out.dtype == torch.bfloat16 and segment.launch_counts()["segment_mean_bf16"] == 1
+
+
+@pytest.mark.parametrize("d", [1, 3, 100, 256])
+def test_csr_mean_f32_kernel_bit_identical(cuda, d):
+    """The f32 full-graph mean's kernel against its plain version on the
+    CPU (an index_add_ that adds in edge order), bit for bit: a row of 700
+    in-edges, zero-degree rows, the last row, a given degree and a counted
+    one, h aligned and one float past a 16-byte boundary (the scalar path);
+    one launch a call; and within 1e-6 of the chunked index_add_ path it
+    replaced (whose atomic adds on the card only reassociate the sum)."""
+    from falcon_ttdforgnns_torch.ops import segment
+    rng = np.random.default_rng(100 + d)
+    n = 5000
+    deg = rng.integers(0, 30, n)
+    deg[::9] = 0
+    deg[3], deg[n - 1] = 700, 12
+    dst = torch.tensor(np.repeat(np.arange(n), deg), device=cuda)
+    src = torch.tensor(rng.integers(0, n, int(deg.sum())), device=cuda)
+    s, indptr = segment.edges_by_row(src, dst, n)
+    counts = indptr.diff()
+    given = torch.tensor(deg.astype(np.float32), device=cuda)
+    vals = torch.tensor(rng.normal(size=(n, d)).astype(np.float32), device=cuda)
+    buf = torch.empty(n * d + 1, device=cuda)
+    buf[1:] = vals.reshape(-1)
+    for h in (vals, buf[1:].view(n, d)):
+        for degf in (given, counts):
+            segment.reset_launch_counts()
+            got = segment.csr_mean_f32(h, s, indptr, degf)
+            assert segment.launch_counts()["csr_mean_f32"] == 1
+            want = segment.csr_mean_f32_plain(h.cpu(), s.cpu(), indptr.cpu(), degf.cpu())
+            assert got.dtype == torch.float32
+            assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    chunked = segment.spmm_sum_chunked(vals, src, dst, n) / given.clamp(min=1.0)[:, None]
+    torch.testing.assert_close(got, chunked, rtol=1e-6, atol=1e-6 * float(chunked.abs().max()))
+
+
+def test_bf16_evaluate_takes_one_row_index_and_the_csr_means(cuda):
+    """A --bf16 evaluate() of three layers on the card: layer 1's f32 mean
+    through csr_mean_f32, layers 2 and 3 through segment_mean_bf16, one
+    spmm.rows span a call inside spmm.aggregate; the same accuracies in
+    both calls (no atomics left in the means); and a --full-neighbor step's
+    f32 means keep the chunked scatter (no csr_mean_f32, no row index)."""
+    from falcon_ttdforgnns_torch.graph import hard_synthetic_dataset
+    from falcon_ttdforgnns_torch.ops import segment
+    from falcon_ttdforgnns_torch.train import SageTrainer, TrainConfig
+    from falcon_ttdforgnns_torch.utils import metrics
+    ds = hard_synthetic_dataset(num_nodes=2000, avg_degree=5, num_classes=4, feat_dim=16,
+                                seed=0)
+    kw = dict(batch_size=64, fanouts=(3, 3, 3), hidden_dim=16, num_layers=3, tt_ranks=(4, 4))
+    gpu = SageTrainer(ds, TrainConfig(bf16=True, **kw), device="cuda")
+    accs = []
+    metrics.reset_spans()
+    metrics.set_tracing(True)
+    try:
+        for call in (1, 2):
+            segment.reset_launch_counts()
+            accs.append(gpu.evaluate())
+            assert segment.launch_counts() == {"segment_mean_bf16": 2, "csr_mean_f32": 1}
+            stats = metrics.span_stats()
+            assert stats["spmm.rows"]["calls"] == call
+            assert stats["spmm.rows"]["parents"] == ["spmm.aggregate"]
+            assert stats["spmm.aggregate"]["calls"] == 3 * call
+        metrics.reset_spans()
+        step = SageTrainer(ds, TrainConfig(use_sample=False, **kw), device="cuda")
+        segment.reset_launch_counts()
+        loss, _ = step.full_neighbor_step(torch.arange(64, device=cuda))
+        assert np.isfinite(float(loss))
+        assert segment.launch_counts()["csr_mean_f32"] == 0
+        assert "spmm.rows" not in metrics.span_stats()
+    finally:
+        metrics.set_tracing(False)
+        metrics.reset_spans()
+    assert accs[0] == accs[1] and all(0.0 <= a <= 1.0 for a in accs[0].values())
 
 
 # ----------------------------------------------------------------- --dist

@@ -9,7 +9,7 @@ was set from.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -118,15 +118,15 @@ def tree_faults(edge_keys: torch.Tensor, deg: torch.Tensor, num_nodes: int,
     return bad
 
 
-def mask_faults(model: dict, steps: List[dict]) -> int:
-    """Count the recorded dropout masks of the wrong number or shape: one
-    after every conv but the last, on each level it computes."""
-    L, H = model["num_layers"], model["hidden_dim"]
+def mask_faults(mask_shapes: Callable, model: dict, steps: List[dict]) -> int:
+    """Count the recorded dropout masks of the wrong number or shape, against
+    the architecture's ``mask_shapes(model, B, widths)`` (its reference's)
+    at each step's batch and level widths."""
     bad = 0
     for st in steps:
         B = st["seeds"].shape[0]
         widths = [1] + [l.reshape(B, -1).shape[1] for l in st["layers"]]
-        want = [(B, widths[lev], H) for li in range(L - 1) for lev in range(L - li)]
+        want = mask_shapes(model, B, widths)
         got = [tuple(m.shape) for m in st["masks"]]
         bad += sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
     return bad

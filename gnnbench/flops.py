@@ -1,12 +1,15 @@
-"""The yardstick: the H100's peaks, the useful work of a SAGE step and of
-a full-graph evaluation counted from shapes, and the least time of the
+"""The yardstick: the H100's peaks, the useful work of a training step and
+of a full-graph evaluation counted from shapes, and the least time of the
 kernels whose roofline share the benchmark reports.
 
 Work is counted from what the inputs need, never from how a kernel walks
 them: the TT chain's multiply-adds at the distinct ids and prefix runs of
 a step's ids (the grouped count of ``csrc/tt_kernels.cu``'s note), the
-tower's matmuls at the sampled tree's level sizes.  So a roofline reads
-the same work whatever implements it.
+tower's at the sampled tree's level sizes or over the full graph.  So a
+roofline reads the same work whatever implements it.  The table's count,
+which every architecture shares, is here; the tower's is the
+architecture's own, in the configuration's reference module
+(``tower_train_flops``, ``tower_eval_flops``).
 """
 
 from __future__ import annotations
@@ -117,30 +120,13 @@ def level_sizes(batch: int, fanouts: Sequence[int]) -> list:
     return sizes
 
 
-def tower_dims(model: dict, num_classes: int, feat_dim: int) -> list:
-    dims = [model["hidden_dim"]] * (model["num_layers"] - 1) + [num_classes]
-    return list(zip([feat_dim] + dims[:-1], dims))
-
-
-def sampled_tower_flops(model: dict, num_classes: int, feat_dim: int) -> float:
-    """A training step's tower matmuls, forward and backward: conv l runs
-    on levels 0 .. L-1-l, two products (self and neighbour mean) of
-    (rows, in) x (in, out) each; the backward costs twice the forward (the
-    input gradient, which layer 0's leaf embedding rows need too, and the
-    weight gradient)."""
-    sizes = level_sizes(model["batch_size"], model["fanouts"])
-    L = model["num_layers"]
-    fwd = sum(2 * 2 * sum(sizes[:L - li]) * i * o
-              for li, (i, o) in enumerate(tower_dims(model, num_classes, feat_dim)))
-    return 3.0 * fwd
-
-
-def train_step_flops(config: dict, num_classes: int, tt_counts=None) -> float:
-    """One step's model FLOPs: the tower's, plus the TT chain's useful
-    forward and gradient work at the step's distinct ids and prefix runs
+def train_step_flops(config: dict, ref, num_classes: int, tt_counts=None) -> float:
+    """One step's model FLOPs: the tower's (``ref.tower_train_flops``, the
+    configuration's reference module), plus the TT chain's useful forward
+    and gradient work at the step's distinct ids and prefix runs
     (``tt_counts``; none for the dense table, whose rows are gathered)."""
     model = config["model"]
-    flops = sampled_tower_flops(model, num_classes, model["feat_dim"])
+    flops = ref.tower_train_flops(model, num_classes, model["feat_dim"])
     tt = config.get("tt")
     if tt is not None and tt_counts is not None:
         q, r = tt["q_shapes"], tt["ranks"]
@@ -149,13 +135,13 @@ def train_step_flops(config: dict, num_classes: int, tt_counts=None) -> float:
     return flops
 
 
-def eval_flops(config: dict, num_nodes: int, num_classes: int) -> float:
-    """One full-graph evaluation's model FLOPs: every conv over all rows
-    (two products each) and the lookup of every row (its distinct ids are
-    all N, its prefix runs ceil(N / p_last))."""
+def eval_flops(config: dict, ref, num_nodes: int, num_edges: int, num_classes: int) -> float:
+    """One full-graph evaluation's model FLOPs: the tower's over the whole
+    graph (``ref.tower_eval_flops``, the configuration's reference module)
+    and the lookup of every row (its distinct ids are all N, its prefix
+    runs ceil(N / p_last))."""
     model = config["model"]
-    flops = sum(2 * 2 * num_nodes * i * o
-                for i, o in tower_dims(model, num_classes, model["feat_dim"]))
+    flops = ref.tower_eval_flops(model, num_nodes, num_edges, num_classes, model["feat_dim"])
     tt = config.get("tt")
     if tt is not None:
         runs = -(-num_nodes // tt["p_shapes"][-1])

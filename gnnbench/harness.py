@@ -7,7 +7,9 @@ metric is a file the harness finds by name:
 * ``BENCHMARK.json`` names each cell's configuration and traffic mix, and
   lists the metrics;
 * ``gnnbench/configs/<config>.json``: the graph, the model, the trainer
-  and the precision the configuration states;
+  and the precision the configuration states, and its ``reference``: the
+  file of its architecture's plain reference, which also gives all that
+  the harness knows of the model (``INTERFACE``);
 * ``gnnbench/traffic/<traffic>.json``: the drive (``train_epochs`` or
   ``evaluate_calls``), its warm-up and its overrides of the trainer;
 * ``gnnbench/end_to_end/<metric>.py`` and ``gnnbench/metrics/<metric>.py``:
@@ -24,10 +26,12 @@ under test.
 from __future__ import annotations
 
 import gc
+import importlib
 import importlib.util
 import json
 import math
 import os
+import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -39,11 +43,14 @@ import torch
 from . import check
 from .graph import Graph, edge_keys, load_graph
 from .profiling import Slice, complete_slice
-from .reference import sage as ref
 
 PKG = Path(__file__).resolve().parent  # the readers: code, beside this file
 FORBIDDEN = ("jax", "jaxlib", "flax", "falcon_ttdforgnns_tpu")
 CHECK_STEPS = 3  # the first steps the reference repeats
+# what a configuration's reference module gives (gnnbench/README.md)
+INTERFACE = ("ARCH", "param_shapes", "make_weights", "train_readings", "full_graph_logits",
+             "level_ids", "CONTROLS", "ADAM_B1", "DROPOUT_SITES", "mask_shapes",
+             "tower_train_flops", "tower_eval_flops")
 
 
 class CellError(RuntimeError):
@@ -52,9 +59,13 @@ class CellError(RuntimeError):
 
 # ------------------------------------------------------------------ files
 def _load_module(path: Path):
-    spec = importlib.util.spec_from_file_location(f"gnnbench_{path.stem}".replace(".", "_"),
-                                                  path)
+    """The module of a file under ``gnnbench/``, named by its path there
+    and entered in ``sys.modules`` (a dataclass looks its module up)."""
+    rel = path.resolve().relative_to(PKG).with_suffix("")
+    name = "gnnbench_" + "_".join(rel.parts).replace(".", "_")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
 
@@ -71,9 +82,35 @@ def reader_path(kind: str, name: str) -> Path:
     raise CellError(f"no reader {kind}/{name}.py, nor one of a dotted prefix of it")
 
 
+def load_reference(config: dict):
+    """The module of the configuration's architecture: the file its
+    ``reference`` names, resolved against the checkout that holds this
+    file and lying under ``gnnbench/``, whose ``ARCH`` is the
+    configuration's ``model.arch`` and which has every name of
+    ``INTERFACE``."""
+    name = config.get("reference")
+    if not name:
+        raise CellError(f"the configuration {config.get('name')!r} names no reference")
+    path = (PKG.parent / name).resolve()
+    if not path.is_relative_to(PKG):
+        raise CellError(f"the reference {name} lies outside {PKG.name}/")
+    if not path.is_file():
+        raise CellError(f"no reference file {name}")
+    ref = _load_module(path)
+    missing = [n for n in INTERFACE if not hasattr(ref, n)]
+    if missing:
+        raise CellError(f"the reference {name} lacks {missing}")
+    arch = config["model"].get("arch")
+    if ref.ARCH != arch:
+        raise CellError(f"the reference {name} is of {ref.ARCH!r}, the configuration's "
+                        f"model of {arch!r}")
+    return ref
+
+
 def load_cell(root: Path, workload: str) -> SimpleNamespace:
-    """The cell's entries and data files under ``root``, and its metrics'
-    readers beside this file, by the names ``BENCHMARK.json`` gives."""
+    """The cell's entries and data files under ``root``, its
+    configuration's reference module, and its metrics' readers beside this
+    file, by the names ``BENCHMARK.json`` and the configuration give."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
@@ -81,6 +118,7 @@ def load_cell(root: Path, workload: str) -> SimpleNamespace:
     cell = cells[workload]
     cfg_entry = {c["name"]: c for c in bench["configs"]}[cell["config"]]
     config = json.loads((root / cfg_entry["file"]).read_text())
+    ref = load_reference(config)
     traffic = json.loads((root / "gnnbench" / "traffic" / f"{cell['traffic']}.json").read_text())
     limits = json.loads((root / "gnnbench" / "limits" / f"{workload}.json").read_text())
 
@@ -88,7 +126,7 @@ def load_cell(root: Path, workload: str) -> SimpleNamespace:
         return workload in m.get("workloads", [workload])
 
     return SimpleNamespace(
-        name=workload, cell=cell, config=config, traffic=traffic, limits=limits,
+        name=workload, cell=cell, config=config, ref=ref, traffic=traffic, limits=limits,
         end_to_end=[(m, _load_module(reader_path("end_to_end", m["name"])))
                     for m in bench["end_to_end"] if mine(m)],
         per_layer=[(m, _load_module(reader_path("metrics", m["name"])))
@@ -192,33 +230,38 @@ class _Recorded(Exception):
 class StepRecorder:
     """Records the program's first steps through the window's own call,
     ``--mode puregpu``'s ``device_train_step``: each step's seeds, sampled
-    tree, labels, dropout masks and loss; after the first step the gradient
-    norms Adam's moments give; after the last the norm of each parameter's
-    change from the run's weights, and then it ends the epoch."""
+    tree, labels, dropout masks (the ``dropout`` of each of the reference's
+    ``DROPOUT_SITES``) and loss; after the first step the gradient norms
+    Adam's moments give; after the last the norm of each parameter's change
+    from the run's weights, and then it ends the epoch."""
 
-    def __init__(self, trainer, weights, n_steps: int):
-        import falcon_ttdforgnns_torch.models.sage as sage_mod
-        self.trainer, self.weights, self.n = trainer, weights, n_steps
+    def __init__(self, trainer, weights, n_steps: int, ref):
+        self.trainer, self.weights, self.n, self.ref = trainer, weights, n_steps, ref
         self.steps: List[dict] = []
         self.grads = self.grad_norms = self.change_norms = None
-        self._sage, self._dropout = sage_mod, sage_mod.dropout
         self._cur: Optional[dict] = None
         if trainer.cfg.mode != "puregpu":
             raise CellError(f"the recorder follows --mode puregpu's step, not {trainer.cfg.mode}")
-        sage_mod.dropout = self._drop
+        self._sites = [(mod, mod.dropout) for mod in
+                       map(importlib.import_module, dict.fromkeys(ref.DROPOUT_SITES))]
+        for mod, inner in self._sites:
+            mod.dropout = self._recording(inner)
         self._inner_sample, self._inner_step = trainer.sample_layers, trainer.device_train_step
         trainer.sample_layers, trainer.device_train_step = self._sample, self._device_step
 
     def remove(self) -> None:
-        self._sage.dropout = self._dropout
+        for mod, inner in self._sites:
+            mod.dropout = inner
         for name in ("sample_layers", "device_train_step"):
             self.trainer.__dict__.pop(name, None)
 
-    def _drop(self, h, p, train, generator):
-        out = self._dropout(h, p, train, generator)
-        if self._cur is not None and train and p > 0:
-            self._cur["masks"].append((out != 0).cpu())
-        return out
+    def _recording(self, inner):
+        def drop(h, p, train, generator):
+            out = inner(h, p, train, generator)
+            if self._cur is not None and train and p > 0:
+                self._cur["masks"].append((out != 0).cpu())
+            return out
+        return drop
 
     def _sample(self, seeds):
         layers = self._inner_sample(seeds)
@@ -238,7 +281,7 @@ class StepRecorder:
                    loss=float(loss))
         self.steps.append(cur)
         if len(self.steps) == 1:  # Adam's first moment after one step is (1 - b1) g
-            grads = {n: m.detach() / (1.0 - ref.ADAM_B1)
+            grads = {n: m.detach() / (1.0 - self.ref.ADAM_B1)
                      for n, m in adam_moments(self.trainer).items()}
             self.grad_norms = {n: float(g.norm()) for n, g in grads.items()}
             self.grads = {n: g.to("cpu") for n, g in grads.items()}
@@ -298,9 +341,9 @@ class TrainDrive:
     def record(self, trainer, device) -> None:
         c = self.ctx
         g = c.graph
-        weights = ref.make_weights(c.config, g.num_nodes, g.num_classes, c.seed, device)
+        weights = c.ref.make_weights(c.config, g.num_nodes, g.num_classes, c.seed, device)
         reset_state(trainer, weights)
-        rec = StepRecorder(trainer, weights, CHECK_STEPS)
+        rec = StepRecorder(trainer, weights, CHECK_STEPS, c.ref)
         try:
             trainer.train_epoch(0)
         except _Recorded:
@@ -323,7 +366,7 @@ class TrainDrive:
 
     def check(self, device, control: Optional[str] = None) -> Dict[str, float]:
         c = self.ctx
-        g = c.graph
+        g, ref = c.graph, c.ref
         dev = torch.device(device)
         keys = torch.as_tensor(edge_keys(g), device=dev)
         deg = torch.as_tensor(np.diff(g.indptr), device=dev)
@@ -334,7 +377,7 @@ class TrainDrive:
         model = c.config["model"]
         bad = check.tree_faults(keys, deg, g.num_nodes, model["fanouts"], steps,
                                 train_mask, labels)
-        bad += check.mask_faults(model, steps)
+        bad += check.mask_faults(ref.mask_shapes, model, steps)
         del keys, train_mask
         if bad:  # the reference cannot follow draws of the wrong shape
             return {"tree_faults": float(bad)}
@@ -417,7 +460,7 @@ class EvalDrive:
         return {"calls": units}
 
     def check(self, device, control: Optional[str] = None) -> Dict[str, float]:
-        c, g = self.ctx, self.ctx.graph
+        c, g, ref = self.ctx, self.ctx.graph, self.ctx.ref
         dev = torch.device(device)
         # the drawn call is due only if the window reached it
         want = sorted({k for k in self.checked if k < self.window_end} | {self.window_end - 1})
@@ -477,7 +520,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     """One run: returns the result line's fields, ``checks`` last.  With
     ``fault`` one of ``faults.FAULTS`` is planted in the program; with
     ``control`` the numbers compared are those of the reference in that
-    precision (``reference.sage.CONTROLS``) put in the program's place.
+    precision (its ``CONTROLS``) put in the program's place.
     With ``numbers`` the result also holds every number the comparison
     read, compared or not, and each leaf's gaps (``gnnbench/readings.py``)."""
     import falcon_ttdforgnns_torch.train.trainer  # noqa: F401  the system under test, or fail now
@@ -486,13 +529,13 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    ctx = SimpleNamespace(seed=int(seed), config=cell.config, traffic=cell.traffic,
-                          deadline=float("inf"))
+    ctx = SimpleNamespace(seed=int(seed), config=cell.config, ref=cell.ref,
+                          traffic=cell.traffic, deadline=float("inf"))
     g = load_graph(cell.config["graph"], root / "gnnbench" / "cache")
     ctx.graph = g
     ds = dataset_of(g, cell.config["name"])
     drive = DRIVES[cell.traffic["drive"]](ctx)
-    weights = ref.make_weights(cell.config, g.num_nodes, g.num_classes, seed, dev)
+    weights = cell.ref.make_weights(cell.config, g.num_nodes, g.num_classes, seed, dev)
     trainer = build_trainer(ds, cell.config, cell.traffic, seed, weights, dev)
     if fault is not None:
         from . import faults
@@ -503,8 +546,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
 
     # a traced run opens its metrics' spans before the window, so that a
     # host-side reading comes from the untraced window
-    tctx = SimpleNamespace(config=cell.config, graph=g, kind=drive.kind, device=dev, steps=0,
-                           step_ids=[], slice=None)
+    tctx = SimpleNamespace(config=cell.config, ref=cell.ref, graph=g, kind=drive.kind,
+                           device=dev, steps=0, step_ids=[], slice=None)
     undo = [mod.install(trainer, tctx) for _, mod in cell.per_layer
             if trace and hasattr(mod, "install")]
 
@@ -586,7 +629,7 @@ def _count_steps(trainer, tctx) -> Callable[[], None]:
     def step(seeds, layers, labels):
         tctx.steps += 1
         if len(tctx.step_ids) < 4:
-            tctx.step_ids.append(ref.level_ids(seeds, layers).to(torch.int32))
+            tctx.step_ids.append(tctx.ref.level_ids(seeds, layers).to(torch.int32))
         return inner(seeds, layers, labels)
 
     trainer._step = step
@@ -595,5 +638,4 @@ def _count_steps(trainer, tctx) -> Callable[[], None]:
 
 def forbidden_modules() -> List[str]:
     """Top-level names in ``sys.modules`` that the run may not load."""
-    import sys
     return sorted({m.split(".", 1)[0] for m in sys.modules} & set(FORBIDDEN))

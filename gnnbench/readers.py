@@ -25,9 +25,9 @@ def train_mfu(ctx):
     """Model FLOPs of the window's epochs over its seconds and the peak of
     the precision the configuration's matmuls run in.  An epoch's model
     FLOPs are those of n_train / batch steps (every labelled seed once):
-    the tower's matmuls forward and backward at the sampled levels' sizes,
-    plus the TT chain's useful work at the mean distinct ids and prefix
-    runs of the profiled steps."""
+    the tower's forward and backward at the sampled levels' sizes (the
+    configuration's reference counts them), plus the TT chain's useful
+    work at the mean distinct ids and prefix runs of the profiled steps."""
     if ctx.kind != "train" or ctx.slice is None or not ctx.step_ids:
         return None
     g, config, win = ctx.graph, ctx.config, ctx.win
@@ -36,7 +36,7 @@ def train_mfu(ctx):
         p_last = config["tt"]["p_shapes"][-1]
         per = [flops.id_counts(ids, p_last) for ids in ctx.step_ids]
         counts = {k: sum(c[k] for c in per) / len(per) for k in per[0]}
-    step = flops.train_step_flops(config, g.num_classes, counts)
+    step = flops.train_step_flops(config, ctx.ref, g.num_classes, counts)
     epoch = step * g.train_idx.shape[0] / config["model"]["batch_size"]
     peak = flops.PEAK_FLOPS[config["precision"]["peak"]]
     return 100.0 * epoch * win.units / win.window_s / peak

@@ -4,12 +4,14 @@
         --control-seeds 101-103 --faults half_batch,altered --fault-seeds 201-203
 
 For each seed, one run of the cell with the shortest window (one epoch,
-or one evaluate() call) and its numbers against the plain reference: the
-program's, the control's (the reference in the precision below the
-configuration's, ``reference.sage.CONTROLS``, put in the program's place)
-and those of each planted fault (``gnnbench/faults.py``).  Prints one
-JSON line per run and writes them all to ``--out``.  The benchmark's own
-runs never run this.
+or one evaluate() call) and its numbers against the plain reference that
+the cell's configuration names: the program's, the control's (that
+reference in the precision below the configuration's, one of its
+``CONTROLS``, put in the program's place) and those of each planted fault
+(``gnnbench/faults.py``).  Any cell of ``BENCHMARK.json`` whose
+configuration names a reference module serves.  Prints one JSON line per
+run and writes them all to ``--out``.  The benchmark's own runs never run
+this.
 """
 
 from __future__ import annotations
@@ -41,7 +43,10 @@ def main() -> int:
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from gnnbench import harness
-    control = harness.load_cell(ROOT, args.workload).config["precision"]["control"]
+    cell = harness.load_cell(ROOT, args.workload)
+    control = cell.config["precision"]["control"]
+    if control not in cell.ref.CONTROLS:
+        raise harness.CellError(f"the control {control!r} is none of {sorted(cell.ref.CONTROLS)}")
     jobs = [("program", None, None, s) for s in seed_list(args.seeds)]
     jobs += [("control", None, control, s) for s in seed_list(args.control_seeds)]
     jobs += [(f, f, None, s) for f in filter(None, args.faults.split(","))

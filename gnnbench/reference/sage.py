@@ -1,6 +1,11 @@
-"""The plain reference of both configurations: GraphSAGE (mean aggregator)
-over a TT-compressed or dense embedding table, trained by Adam, and its
-full-graph layer-wise inference, in plain PyTorch.
+"""The plain reference of the ``sage`` architecture: GraphSAGE (mean
+aggregator) over a TT-compressed or dense embedding table, trained by
+Adam, and its full-graph layer-wise inference, in plain PyTorch.
+
+A configuration names this file as its ``reference``; the harness reaches
+the model only through the names of ``harness.INTERFACE`` here: the
+weights, the readings, the logits, the controls, the program's dropout
+sites, the masks' shapes and the tower's FLOPs.
 
 It imports nothing of the program and takes nothing the program made:
 the weights come from :func:`make_weights` (the benchmark's own draw from
@@ -27,6 +32,13 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from gnnbench.flops import level_sizes
+
+ARCH = "sage"
+# the program's modules whose ``dropout`` draws this tower's masks: the
+# harness records the masks there, by name (the reference imports nothing
+# of the program)
+DROPOUT_SITES = ("falcon_ttdforgnns_torch.models.sage",)
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 FP8_MAX = 448.0  # float8 e4m3's largest finite value
 
@@ -85,6 +97,12 @@ CONTROLS = {"fp8": Precision(store="fp8", matmul="fp8"), "tf32": Precision(matmu
 
 
 # ------------------------------------------------------------- the weights
+def tower_dims(model: dict, num_classes: int, feat_dim: int) -> list:
+    """(in, out) of each conv."""
+    dims = [model["hidden_dim"]] * (model["num_layers"] - 1) + [num_classes]
+    return list(zip([feat_dim] + dims[:-1], dims))
+
+
 def param_shapes(config: dict, num_nodes: int, num_classes: int) -> Dict[str, tuple]:
     """Every trained tensor by the program's parameter name: the TT cores
     (p_k, r_k, q_k, r_{k+1}) or the dense (N, D) table, then each conv's
@@ -97,8 +115,7 @@ def param_shapes(config: dict, num_nodes: int, num_classes: int) -> Dict[str, tu
             shapes[f"embed.tt_core_{k}"] = (p, fr[k], q, fr[k + 1])
     else:
         shapes["embed.weight"] = (num_nodes, model["feat_dim"])
-    dims = [model["hidden_dim"]] * (model["num_layers"] - 1) + [num_classes]
-    for li, (i, o) in enumerate(zip([model["feat_dim"]] + dims[:-1], dims)):
+    for li, (i, o) in enumerate(tower_dims(model, num_classes, model["feat_dim"])):
         shapes[f"convs.{li}.lin_self.weight"] = (o, i)
         shapes[f"convs.{li}.lin_self.bias"] = (o,)
         shapes[f"convs.{li}.lin_neigh.weight"] = (o, i)
@@ -223,6 +240,14 @@ def tower(params: Dict[str, torch.Tensor], num_layers: int, hs: List[torch.Tenso
     return hs[0][:, 0, :].float()
 
 
+def mask_shapes(model: dict, B: int, widths: Sequence[int]) -> List[tuple]:
+    """The dropout masks of a step, in the order the program draws them:
+    one after every conv but the last, on each level it computes, (B, the
+    level's width, hidden)."""
+    L, H = model["num_layers"], model["hidden_dim"]
+    return [(B, widths[lev], H) for li in range(L - 1) for lev in range(L - li)]
+
+
 def level_ids(seeds: torch.Tensor, layers: Sequence[torch.Tensor]) -> torch.Tensor:
     """The ids of every level, seeds first, each level row-major."""
     B = seeds.shape[0]
@@ -325,3 +350,25 @@ def full_graph_logits(config: dict, params: Dict[str, torch.Tensor], indptr: tor
         if li < L - 1:
             h = torch.relu(h)
     return h.float()
+
+
+# ------------------------------------------------------------- the work
+def tower_train_flops(model: dict, num_classes: int, feat_dim: int) -> float:
+    """A training step's tower matmuls, forward and backward: conv l runs
+    on levels 0 .. L-1-l, two products (self and neighbour mean) of
+    (rows, in) x (in, out) each; the backward costs twice the forward (the
+    input gradient, which layer 0's leaf embedding rows need too, and the
+    weight gradient)."""
+    sizes = level_sizes(model["batch_size"], model["fanouts"])
+    L = model["num_layers"]
+    fwd = sum(2 * 2 * sum(sizes[:L - li]) * i * o
+              for li, (i, o) in enumerate(tower_dims(model, num_classes, feat_dim)))
+    return 3.0 * fwd
+
+
+def tower_eval_flops(model: dict, num_nodes: int, num_edges: int, num_classes: int,
+                     feat_dim: int) -> int:
+    """A full-graph evaluation's tower: every conv over all rows, two
+    products each.  The means' adds over ``num_edges`` are the SpMM's work,
+    which its roofline counts, so SAGE counts none here."""
+    return sum(2 * 2 * num_nodes * i * o for i, o in tower_dims(model, num_classes, feat_dim))

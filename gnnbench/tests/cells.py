@@ -7,6 +7,7 @@ limits, traffic and metric readers ``gnnbench/`` keeps for it."""
 
 import json
 from pathlib import Path
+from typing import Optional
 
 REPO = Path(__file__).resolve().parents[2]
 TINY = {"num_nodes": 20000, "avg_degree": 10, "num_classes": 8, "feat_dim": 16,
@@ -25,9 +26,11 @@ def tiny(name: str) -> str:
     return name.replace("products", "tiny")
 
 
-def make_root(tmp: Path, limits: str = "cell", noise_std: float = 0.05) -> Path:
+def make_root(tmp: Path, limits: str = "cell", noise_std: float = 0.05,
+              reference: Optional[str] = None) -> Path:
     """``limits``: "cell" copies each real cell's limits; "loose" sets
-    every limit wide, for tests of the drive alone."""
+    every limit wide, for tests of the drive alone.  ``reference``, where
+    given, is the reference module every configuration names."""
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     add_kept(bench)
     (tmp / "gnnbench" / "configs").mkdir(parents=True)
@@ -41,6 +44,8 @@ def make_root(tmp: Path, limits: str = "cell", noise_std: float = 0.05) -> Path:
         cfg["model"].update(hidden_dim=32, feat_dim=16, fanouts=[2, 3, 4], batch_size=64)
         if "tt" in cfg:
             cfg["tt"] = {"p_shapes": [25, 30, 30], "q_shapes": [4, 2, 2], "ranks": [4, 4]}
+        if reference is not None:
+            cfg["reference"] = reference
         (tmp / c["file"]).write_text(json.dumps(cfg))
     for w in bench["workloads"]:
         lim = json.loads((REPO / "gnnbench" / "limits" / f"{w['name']}.json").read_text())

@@ -73,7 +73,7 @@ def tiny_trainer(tmp_path):
     root = make_root(tmp_path, limits="loose")
     cell = harness.load_cell(root, "sage-dense-tiny.train")
     g = load_graph(cell.config["graph"], root / "gnnbench" / "cache")
-    weights = harness.ref.make_weights(cell.config, g.num_nodes, g.num_classes, 3, "cpu")
+    weights = cell.ref.make_weights(cell.config, g.num_nodes, g.num_classes, 3, "cpu")
     tr = harness.build_trainer(harness.dataset_of(g, "tiny"), cell.config, cell.traffic, 3,
                                weights, "cpu")
     yield tr

@@ -164,6 +164,17 @@ shard given at each rotation the block that rotation delivers, through
 the ring's own consume and its transpose: equal, bit for bit on
 integer-valued rows, to the plain full-graph sum and its transpose.
 
+Since the sampled GAT (gnnbench's gat-tt-products): after --node-shard,
+the sampled GAT at its published widths through SageTrainer (--mode
+puregpu --bf16 --sparse, 3 layers of 4 heads x 128, fan-out 10,10,10,
+batch 512) from gnnbench/reference/gat.py's weights: the first step's
+loss and gradients against that reference in float32 on the card, a timed
+epoch (seeds/s, peak memory) and evaluate(), counted (three csr_gat_bf16
+launches); after segment_mean_bf16's check, csr_gat_bf16 and csr_gat_f32
+against their plain version on the CPU on the same slice of rows, then
+timed over the whole graph at both layer shapes beside their plain
+version and, on a hidden layer, GATConv's f32 scatters and headed_spmm.
+
 The steps run in the order 1, 2, 5, step 6's flagship phases (the main
 path, --sampler table, --dist and C4), 6 (e) and (f) with --node-shard,
 then 4, 6 (g) and the
@@ -239,6 +250,7 @@ LOGICAL_SHARDS = 4         # the ragged layout's shards consumed in one process
 TT_SOURCE = "falcon_ttdforgnns_torch/csrc/tt_kernels.cu"
 SPMM_SOURCE = "falcon_ttdforgnns_torch/csrc/spmm_kernels.cu"
 TOWER_SOURCE = "falcon_ttdforgnns_torch/csrc/tower_kernels.cu"
+ATTN_SOURCE = "falcon_ttdforgnns_torch/csrc/attn_kernels.cu"
 # csr_mean_f32 against the card's chunked index_add_ over the whole graph:
 # max |diff| over max |plain|, f32 reassociation alone (~4e-7 at products)
 CSR_MEAN_REL_TOL = 1e-6
@@ -264,7 +276,10 @@ REPLACES = {  # the TPU kernel each one ports (its def line)
     # no TPU kernel either: the XLA gather and scatter-add of the reference's
     # f32 full-graph mean (the same spmm_mean), which this kernel sums in
     # edge order
-    "csr_mean_f32": "falcon_ttdforgnns_tpu/ops/segment.py:69"}
+    "csr_mean_f32": "falcon_ttdforgnns_tpu/ops/segment.py:69",
+    # none: the JAX package has no sampled GAT; its full-graph GAT's edge
+    # softmax and weighted sum are XLA scatters
+    "csr_gat_bf16": None, "csr_gat_f32": None}
 ARXIV = dict(p_shapes=(50, 60, 60), q_shapes=(8, 4, 4), tt_ranks=(16, 16))  # the arxiv preset
 
 
@@ -885,8 +900,9 @@ def train_steps(trainer, batches, label):
 
 def kernel_modules():
     """The wrapper modules, each with its KERNELS and launch counts."""
-    from falcon_ttdforgnns_torch.ops import segment, spmm_blocked, spmm_tiled, tower, tt_kernels
-    return tt_kernels, spmm_tiled, spmm_blocked, tower, segment
+    from falcon_ttdforgnns_torch.ops import (attention, segment, spmm_blocked, spmm_tiled, tower,
+                                             tt_kernels)
+    return tt_kernels, spmm_tiled, spmm_blocked, tower, segment, attention
 
 
 def reset_counts() -> None:
@@ -2913,6 +2929,188 @@ def csr_mean_check(g, rows_slice, rows_all, gen, dev) -> dict:
     return res
 
 
+def gat_kernel_check(ds, dev) -> dict:
+    """csr_gat_bf16 and csr_gat_f32 (the sampled GAT's full-graph attention,
+    ops/attention.py) against their plain version run on the CPU, on
+    segment_kernel_check's slice of the products graph's rows around its
+    highest in-degree row plus 64 rows without in-edges, at the GAT's two
+    layer shapes (4 heads of 128 side by side; 4 heads of 48, the 47
+    classes padded, averaged); then timed over the whole graph beside its
+    plain version on the card (one call, host clock) and, as the library
+    path, the f32 aggregation of nn/layers.py GATConv (scatter max, exp,
+    scatter sum, headed_spmm) on one hidden layer.  Each row sums in its
+    own order on the card: f32 agrees to 1e-5 of max |plain|, bf16 within
+    one bf16 step.  Returns its JSON results."""
+    import torch
+    from falcon_ttdforgnns_torch.ops import attention, segment
+    g, n = ds.graph, ds.num_nodes
+    indptr = torch.tensor(g.indptr.astype(np.int64), device=dev)
+    src = torch.tensor(g.indices.astype(np.int64), device=dev)
+    deg_np = np.diff(g.indptr)
+    top = int(deg_np.argmax())
+    lo, hi = max(0, top - 20000), min(n, top + 20000)
+    e0, e1 = int(g.indptr[lo]), int(g.indptr[hi])
+    s_ptr = torch.cat([indptr[lo:hi + 1] - e0,
+                       torch.full((64,), e1 - e0, dtype=torch.int64, device=dev)])
+    s_src, rows = src[e0:e1], hi - lo + 64
+    gen = torch.Generator(device=dev).manual_seed(9)
+    shapes = ((4, 128, False), (4, 48, True))
+    for dtype in (torch.bfloat16, torch.float32):
+        for heads, cp, mean in shapes:
+            # the slice's row r takes x[r] as its self-loop: x holds every row
+            x = torch.randn(n + 64, heads * cp, generator=gen, device=dev).to(dtype)
+            el = torch.randn(n + 64, heads, generator=gen, device=dev) * 2
+            er = torch.randn(rows, heads, generator=gen, device=dev) * 2
+            want = attention.csr_gat_plain(*(t.cpu() for t in (x.float(), el, er, s_src, s_ptr)),
+                                           heads, mean)
+            got = attention.csr_gat(x, el, er, s_src, s_ptr, heads, mean).cpu().float()
+            tol = 1e-5 * float(want.abs().max()) + (2.0 ** -8 * want.abs()
+                                                    if dtype == torch.bfloat16 else 0.0)
+            if not bool(((got - want).abs() <= tol).all()):
+                raise AssertionError(f"csr_gat {dtype} at {heads} x {cp} (mean {mean}): max "
+                                     f"|diff| {float((got - want).abs().max()):.3g}")
+    log(f"  csr_gat_bf16 and csr_gat_f32 agree with their plain version on the CPU on rows "
+        f"{lo}..{hi - 1} (in-degree up to {int(deg_np[top])}) and 64 rows without in-edges, "
+        f"4 x 128 side by side and 4 x 48 averaged (f32 1e-5 of max |plain|, bf16 one step)")
+    E, res = src.numel(), {}
+    dst = torch.repeat_interleave(torch.arange(n, device=dev), indptr.diff())
+    for dtype, (heads, cp, mean) in ((torch.bfloat16, shapes[0]), (torch.bfloat16, shapes[1]),
+                                     (torch.float32, shapes[0])):
+        name = "csr_gat_bf16" if dtype == torch.bfloat16 else "csr_gat_f32"
+        x = torch.randn(n, heads * cp, generator=gen, device=dev).to(dtype)
+        el = torch.randn(n, heads, generator=gen, device=dev) * 2
+        er = torch.randn(n, heads, generator=gen, device=dev) * 2
+        reset_counts()
+        ms = cuda_ms(lambda: attention.csr_gat(x, el, er, src, indptr, heads, mean), 5)
+        launches = launched().get(name, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        attention.csr_gat_plain(x, el, er, src, indptr, heads, mean)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        d, c = heads * cp, 47 if mean else cp  # the last layer's useful columns
+        useful = heads * c
+        nbytes = (2 if dtype == torch.bfloat16 else 4) * n * (useful + (c if mean else useful))
+        bound, by = bound_ms(nbytes + 8 * n * heads + 8 * E + 8 * (n + 1),
+                             2 * (E + n) * useful)
+        lib_ms = None
+        if not mean and dtype == torch.bfloat16:
+            feat = x.float().reshape(n, heads, cp)
+
+            def library():  # nn/layers.py GATConv's aggregation, f32
+                e = torch.nn.functional.leaky_relu(el.index_select(0, src)
+                                                   + er.index_select(0, dst), 0.2)
+                idx = dst[:, None].expand(-1, heads)
+                emax = torch.full((n, heads), float("-inf"), device=dev).scatter_reduce(
+                    0, idx, e, reduce="amax")
+                ex = torch.exp(e - emax.index_select(0, dst))
+                esum = torch.zeros((n, heads), device=dev).index_add(0, dst, ex)
+                alpha = ex / torch.clamp(esum.index_select(0, dst), min=1e-9)
+                return segment.headed_spmm(feat, alpha, src, dst, n)
+
+            lib_ms = cuda_ms(library, 2)
+            del feat
+        gathered = (2 if dtype == torch.bfloat16 else 4) * E * d / 1e9
+        log(f"  {name} over all {n} rows and {E} edges, {heads} x {cp}"
+            f"{' averaged' if mean else ''}: {ms:.3f} ms ({launches} launches in the "
+            f"timing; {gathered / ms:.2f} TB/s of gathered rows), plain version "
+            f"{plain_ms:.1f} ms (one call, host clock), bound {bound:.4f} ms by {by}"
+            + (f"; GATConv's f32 aggregation (scatters and headed_spmm) {lib_ms:.2f} ms"
+               if lib_ms is not None else ""))
+        if name not in res:
+            res[name] = dict(max_abs_err=None, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by, library_ms=lib_ms)
+        del x, el, er
+        torch.cuda.empty_cache()
+    return res
+
+
+def gat_phase(ds, dev, counts) -> None:
+    """The sampled GAT at the published widths of gnnbench's gat-tt-products
+    configuration (3 layers of 4 heads x 128, the last 4 x 47 averaged,
+    fan-out 10,10,10, batch 512, lr 0.001) through SageTrainer, --mode
+    puregpu --bf16 --sparse, from reference/gat.py's weights: its first
+    step's loss and gradients against that reference in float32 on the
+    card (the step's sampled levels and dropout masks recorded); a timed
+    epoch (seeds/s, peak device memory); then evaluate(), counted (fills
+    counts["gat evaluate"])."""
+    import torch
+    from falcon_ttdforgnns_torch.models import gat_ns
+    from falcon_ttdforgnns_torch.train import SageTrainer, TrainConfig
+    from falcon_ttdforgnns_torch.train.optim import ADAM_B1
+    from gnnbench.reference import gat as ref
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "gnnbench", "configs",
+                           "gat-tt-products.json")) as f:
+        conf = json.load(f)
+    model, tt, seed = conf["model"], conf["tt"], 2024
+    cfg = TrainConfig(batch_size=model["batch_size"], fanouts=tuple(model["fanouts"]),
+                      dropout=model["dropout"], hidden_dim=model["hidden_dim"],
+                      num_layers=model["num_layers"], tt_ranks=tuple(tt["ranks"]),
+                      p_shapes=tuple(tt["p_shapes"]), q_shapes=tuple(tt["q_shapes"]),
+                      seed=seed, **conf["trainer"])
+    tr = SageTrainer(ds, cfg, device=dev)
+    weights = ref.make_weights(conf, ds.num_nodes, ds.num_classes, seed, dev)
+    params = dict(tr.model.named_parameters())
+    with torch.no_grad():
+        for k, w in weights.items():
+            params[k].copy_(w)
+    masks, inner = [], gat_ns.dropout
+
+    def drop(h, p, train, generator):
+        # the keep mask of the generator's own draw (nn/layers.py dropout's
+        # rand < 1 - p): a kept ELU value can be exactly 0 in bf16
+        state = generator.get_state()
+        masks.append(torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - p)
+        generator.set_state(state)
+        return inner(h, p, train, generator)
+
+    B = cfg.batch_size
+    seeds = torch.as_tensor(ds.train_idx[:B].astype(np.int32), device=dev)
+    labels = torch.as_tensor(ds.labels[ds.train_idx[:B]].astype(np.int64), device=dev)
+    layers = tr.sample_layers(seeds)
+    gat_ns.dropout = drop
+    try:
+        loss = float(tr._step(seeds, layers, labels)[0])
+    finally:
+        gat_ns.dropout = inner
+    by_id = {id(p): m for p, m in zip(tr.opt_params, tr.opt_state.m)}
+    by_id.update({id(p): m for p, m in zip(tr.cores, tr.tt_opt.m)})
+    got = {k: by_id[id(p)] / (1.0 - ADAM_B1) for k, p in params.items()}
+    r = ref.train_readings(conf, weights, [{"seeds": seeds, "labels": labels, "layers": layers,
+                                            "masks": masks}])
+    med = float(np.median(list(r["grad_norms"].values())))
+    gap = {k: abs(float(got[k].norm()) - r["grad_norms"][k]) / max(r["grad_norms"][k], med)
+           for k in got}
+    diff = {k: float((got[k] - g).norm()) / max(r["grad_norms"][k], med)
+            for k, g in r["grads"].items()}
+    loss_gap = abs(loss - r["losses"][0]) / r["losses"][0]
+    log(f"  first step at published widths: loss {loss:.6f} against the reference's "
+        f"{r['losses'][0]:.6f} (gap {loss_gap:.2e}); worst leaf's gradient norm gap "
+        f"{max(gap.values()):.2e} ({max(gap, key=gap.get)}), difference "
+        f"{max(diff.values()):.2e} ({max(diff, key=diff.get)}); masks "
+        f"{[tuple(m.shape) for m in masks]}")
+    if loss_gap > 1e-2 or max(diff.values()) > 0.2:
+        raise AssertionError("the sampled GAT's first step parts from its reference")
+    del r, got, weights, masks
+    torch.cuda.empty_cache()
+    tr.train_epoch(0)  # warm-up: every shape of the epoch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = tr.train_epoch(1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps = -(-len(ds.train_idx) // (cfg.steps_per_call * B)) * cfg.steps_per_call
+    log(f"  a timed epoch ({steps} steps of {B}): {secs:.2f} s, "
+        f"{len(ds.train_idx) / secs:.0f} seeds/s ({steps * B / secs:.0f} sampled seeds/s), "
+        f"loss {stats['loss']:.4f}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _, counts["gat evaluate"] = checked_evaluate(tr, "GAT bf16 evaluate",
+                                                 must_launch=("tt_fwd", "csr_gat_bf16"))
+    del tr
+    torch.cuda.empty_cache()
+
+
 def flagship_tools_phase(trainer, ds, full_accs, dev, counts) -> None:
     """On the trained flagship: --eval-sampled (its accuracies beside the
     full evaluate()'s, seconds, launches), then --store-emb (the table
@@ -3355,6 +3553,8 @@ def main() -> int:
     full_neighbor_phase(ds, config, K, dev, counts)
     log("--full-neighbor --node-shard over one NCCL rank, against --full-neighbor:")
     node_shard_phase(ds, config, dev, counts)
+    log("the sampled GAT (gnnbench's gat-tt-products) at its published widths:")
+    gat_phase(ds, dev, counts)
 
     # the two slow orderings start only after the phases whose host time is
     # read: --partition 128 in a thread (the native partitioner, one core),
@@ -3381,6 +3581,11 @@ def main() -> int:
     log("the full-graph means' kernels (C2's bf16, the f32 one) against their plain "
         "versions:")
     tower_res.update(segment_kernel_check(ds, dev))
+    torch.cuda.empty_cache()
+    log("the sampled GAT's CSR attention kernels against their plain version:")
+    reset_counts()
+    tower_res.update(gat_kernel_check(ds, dev))
+    counts["gat kernel phase"] = launched()
     torch.cuda.empty_cache()
     log("tt_fwd, tt_fwd_sr and tt_grads at every rank of the tuner's box (C3):")
     rank_phase(dev)
@@ -3485,9 +3690,11 @@ def main() -> int:
                "spmm_tile_partials[bf16]": "kernel phase",
                "spmm_gather": "full-graph gcn blocked",
                "fanout_mean_bf16": "main", "fanout_mean_bf16[bwd]": "main",
-               "segment_mean_bf16": "bf16 evaluate", "csr_mean_f32": "bf16 evaluate"}
+               "segment_mean_bf16": "bf16 evaluate", "csr_mean_f32": "bf16 evaluate",
+               "csr_gat_bf16": "gat evaluate", "csr_gat_f32": "gat kernel phase"}
     kernels = [{"name": n, "route": "cuda",
-                "source": (TT_SOURCE if n.startswith("tt_") else TOWER_SOURCE
+                "source": (TT_SOURCE if n.startswith("tt_") else ATTN_SOURCE
+                           if n.startswith("csr_gat") else TOWER_SOURCE
                            if n.startswith(("fanout_", "segment_", "csr_")) else SPMM_SOURCE),
                 "replaces": REPLACES[n], "launches": counts[path_of[n]][n],
                 "launched_by": path_of[n],

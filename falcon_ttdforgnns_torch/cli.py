@@ -1,6 +1,8 @@
 """Command-line entry point of the port: sampled GraphSAGE training
-(``--model sage``) and full-graph GCN/GAT training (``--model gcn|gat``),
-on CUDA unless ``--device cpu``.
+(``--model sage``), the sampled GAT through the same trainer (``--model
+gat-ns``, the port's own, ``--num-heads`` heads of ``--num-hidden``) and
+full-graph GCN/GAT training (``--model gcn|gat``), on CUDA unless
+``--device cpu``.
 
     python -m falcon_ttdforgnns_torch.cli --dataset hard-ogbn-products \
         --sparse --epochs 1
@@ -121,7 +123,7 @@ def run(args, ds, logger):
         weight_dist = args.init if args.init in (
             "normal", "uniform", "naive-uniform", "approx-normal",
             "approx-uniform") else "approx-normal"
-        if args.model != "sage":
+        if args.model in ("gcn", "gat"):
             fcfg = FullGraphConfig(
                 model=args.model, epochs=args.epochs, lr=args.lr, weight_decay=args.wd,
                 dropout=args.dropout, hidden_dim=args.num_hidden,
@@ -167,7 +169,8 @@ def run(args, ds, logger):
             bf16=args.bf16, bf16_tower=args.bf16_tower,
             bf16_kernel=args.bf16_kernel, bf16_mean_f32=args.bf16_mean_f32,
             bf16_sr=args.bf16_sr, bf16_f32_head=args.bf16_f32_head,
-            bf16_f32_first=args.bf16_f32_first)
+            bf16_f32_first=args.bf16_f32_first,
+            model="gat" if args.model == "gat-ns" else "sage", num_heads=args.num_heads)
         trainer = SageTrainer(ds, cfg, logger=logger, precomputed_cores=precomputed,
                               device=args.device)
         if args.run_one:

@@ -58,9 +58,13 @@ _SIGNATURES: Dict[str, Dict[str, list]] = {
         "segment_mean_bf16": [_p, _p, _p, _p, _ll, _i, _p, _p],
         "csr_mean_f32": [_p, _p, _p, _p, _ll, _i, _p, _p],
     },
+    "attn_kernels": {
+        "csr_gat_bf16": [_p, _p, _p, _p, _p, _ll, _i, _i, _i, _p, _p],
+        "csr_gat_f32": [_p, _p, _p, _p, _p, _ll, _i, _i, _i, _p, _p],
+    },
 }
 _ERROR_STRING = {"tt_kernels": "tt_error_string", "spmm_kernels": "spmm_error_string",
-                 "tower_kernels": "tower_error_string"}
+                 "tower_kernels": "tower_error_string", "attn_kernels": "attn_error_string"}
 SOURCES = tuple(_SIGNATURES)
 
 

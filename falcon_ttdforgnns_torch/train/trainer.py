@@ -1,5 +1,6 @@
 """Sampled-minibatch GraphSAGE training loop (``--mode mixed`` and
-``--mode puregpu``).
+``--mode puregpu``), which trains the sampled GAT of ``models/gat_ns.py``
+(``model="gat"``, ``--model gat-ns``) through the same step.
 
 Port of ``falcon_ttdforgnns_tpu/train/trainer.py:SageTrainer``.  Under
 ``--mode mixed`` the host sampler feeds static-shape batches to one train
@@ -116,6 +117,7 @@ from ..graph.csr import NodeDataset
 from ..graph.device_sampler import (build_neighbor_table, device_sample_block,
                                     device_sample_block_table)
 from ..graph.sampler import NeighborLoader, sample_block
+from ..models.gat_ns import GATNS
 from ..models.sage import SAGE, collect_level_ids
 from ..nn.tt_embedding import AccessCountingEmbedding
 from ..ops.segment import edges_by_row
@@ -142,13 +144,17 @@ from .optim import (ADAGRAD_EPS, ADAM_B1, ADAM_B2, ADAM_EPS, ROWWISE_ADAGRAD_EPS
 SPMM_ROUTES = ("xla", "pallas", "blocked")
 MODES = ("mixed", "puregpu")    # --mode: host sampling, or in-step on the device
 SAMPLERS = ("csr", "table")     # --sampler of --mode puregpu
+MODELS = ("sage", "gat")        # TrainConfig.model: GraphSAGE, or the sampled GAT
 EVAL_KEYS = ("train_acc", "val_acc", "test_acc")
 
 
 @dataclass
 class TrainConfig:
-    """The JAX package's TrainConfig, field for field; values this port
-    does not run yet raise ``NotImplementedError`` in :class:`SageTrainer`."""
+    """The JAX package's TrainConfig, field for field, and two fields of
+    the port's own, ``model`` and ``num_heads``: "sage" trains GraphSAGE,
+    "gat" the sampled GAT of ``models/gat_ns.py`` with ``num_heads``
+    heads of ``hidden_dim`` (``--model gat-ns``); values this port does not
+    run yet raise ``NotImplementedError`` in :class:`SageTrainer`."""
 
     batch_size: int = 1024
     fanouts: Tuple[int, ...] = (5, 10, 15)
@@ -198,6 +204,8 @@ class TrainConfig:
     node_shard: bool = False
     eval_sampled: bool = False
     eval_sample_max: int = 131072
+    model: str = "sage"
+    num_heads: int = 4
 
 
 def _check_supported(cfg: TrainConfig) -> None:
@@ -213,6 +221,19 @@ def _check_supported(cfg: TrainConfig) -> None:
         raise ValueError(f"unknown tt_optimizer {cfg.tt_optimizer!r}")
     if cfg.spmm not in SPMM_ROUTES:
         raise ValueError(f"unknown spmm {cfg.spmm!r}; expected one of {SPMM_ROUTES}")
+    if cfg.model not in MODELS or cfg.num_heads < 1:
+        raise ValueError(f"unknown model {cfg.model!r} ({cfg.num_heads} heads); expected "
+                         f"one of {MODELS}")
+    if cfg.model == "gat":
+        refused = [flag for flag, on in (
+            ("--node-shard", cfg.node_shard), (f"--spmm {cfg.spmm}", cfg.spmm != "xla"),
+            ("--eval-sampled", cfg.eval_sampled), ("--full-neighbor", not cfg.use_sample),
+            ("--bf16-mean-f32", cfg.bf16_mean_f32), ("--bf16-f32-head", cfg.bf16_f32_head),
+            ("--bf16-f32-first", cfg.bf16_f32_first)) if on]
+        if refused:
+            raise ValueError(f"the sampled GAT trains on sampled levels and evaluates "
+                             f"through its CSR attention kernel (--spmm xla); it cannot "
+                             f"take {', '.join(refused)}")
 
 
 def _warn_inert_flags(cfg: TrainConfig, warn) -> None:
@@ -336,7 +357,7 @@ class SageTrainer:
         _warn_inert_flags(cfg, warn)
         bf16_tower = cfg.bf16 or cfg.bf16_tower
         # params are drawn on the CPU from a seeded generator, then moved
-        self.model = SAGE(
+        common = dict(
             num_nodes=dataset.num_nodes, in_dim=dataset.feat_dim,
             hidden_dim=cfg.hidden_dim, num_classes=dataset.num_classes,
             num_layers=cfg.num_layers, dropout=cfg.dropout, use_tt=cfg.use_tt,
@@ -346,10 +367,14 @@ class SageTrainer:
             precomputed_cores=precomputed_cores, batch_count=cfg.batch_count,
             generator=torch.Generator().manual_seed(cfg.seed),
             # --full-neighbor aggregates over true degrees: f32, as in JAX
-            bf16=bf16_tower and cfg.use_sample, mean_acc_f32=cfg.bf16_mean_f32,
-            bf16_f32_head=cfg.bf16_f32_head, bf16_f32_first=cfg.bf16_f32_first,
+            bf16=bf16_tower and cfg.use_sample,
             # in-step sampling: the host loader never runs, so the step counts
-            device_freq=cfg.mode == "puregpu" and cfg.cache_size > 0).to(self.device)
+            device_freq=cfg.mode == "puregpu" and cfg.cache_size > 0)
+        if cfg.model == "gat":
+            self.model = GATNS(num_heads=cfg.num_heads, **common).to(self.device)
+        else:
+            self.model = SAGE(mean_acc_f32=cfg.bf16_mean_f32, bf16_f32_head=cfg.bf16_f32_head,
+                              bf16_f32_first=cfg.bf16_f32_first, **common).to(self.device)
         self.shapes = self.model.embed.shapes if cfg.use_tt else None
         self.patience = auto_plateau_patience(cfg.plateau_patience, bf16_tower)
         if bf16_tower and cfg.plateau_patience < 0 and logger:

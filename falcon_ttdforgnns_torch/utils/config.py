@@ -24,7 +24,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     # general (tt_utils.py:19-43)
     g = p.add_argument_group("general")
     g.add_argument("--device", type=str, default="cuda", help="cuda | cpu")
-    g.add_argument("--model", type=str, default="sage", choices=["sage", "gcn", "gat"])
+    # gat-ns, the port's own: the sampled GAT through SageTrainer (models/gat_ns.py)
+    g.add_argument("--model", type=str, default="sage", choices=["sage", "gcn", "gat", "gat-ns"])
     g.add_argument("--dataset", type=str, default="ogbn-products")
     g.add_argument("--epochs", type=int, default=2)
     g.add_argument("--lr", type=float, default=0.003)

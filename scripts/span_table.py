@@ -5,7 +5,8 @@ benchmark (``gnnbench/configs``, ``gnnbench/traffic``), on the card.
     python3 scripts/span_table.py --config sage-tt-products --traffic train \\
         --seed 5 --units 6 [--out FILE]
 
-Builds the trainer as ``gnnbench/harness.py`` does (the run's weights, the
+Builds the trainer as ``gnnbench/harness.py`` does (the configuration's
+reference module from ``harness.load_cell``, the run's weights, the
 traffic's warm-up), runs two more units untimed (train epochs, or
 ``evaluate()`` calls with the traffic's noise: the first calls of a process
 run slow now and then), then ``--units`` units, tracing off, on, on, off,
@@ -34,20 +35,34 @@ sys.path.insert(0, str(ROOT))
 
 from gnnbench import harness  # noqa: E402
 from gnnbench.graph import load_graph  # noqa: E402
-from gnnbench.reference import sage as ref  # noqa: E402
 
 from falcon_ttdforgnns_torch.utils import metrics  # noqa: E402
 
 FIELDS = ("host_ms", "host_self_ms", "device_ms", "device_self_ms")
 
 
+def load(root: Path, config: str, traffic: str):
+    """(configuration, traffic, reference module) of the cell of ``config``
+    under ``traffic`` through ``harness.load_cell``, or, for a pair that
+    ``BENCHMARK.json`` runs in no cell (the TT train traffic), the files and
+    the configuration's reference through ``harness.load_reference``."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    for w in bench["workloads"]:
+        if (w["config"], w["traffic"]) == (config, traffic):
+            cell = harness.load_cell(root, w["name"])
+            return cell.config, cell.traffic, cell.ref
+    cfg = json.loads((root / "gnnbench" / "configs" / f"{config}.json").read_text())
+    tra = json.loads((root / "gnnbench" / "traffic" / f"{traffic}.json").read_text())
+    return cfg, tra, harness.load_reference(cfg)
+
+
 def build(root: Path, config: str, traffic: str, seed: int, device):
     """The trainer and the drive of a cell of ``config`` under ``traffic``,
     after the traffic's warm-up."""
-    cfg = json.loads((root / "gnnbench" / "configs" / f"{config}.json").read_text())
-    tra = json.loads((root / "gnnbench" / "traffic" / f"{traffic}.json").read_text())
+    cfg, tra, ref = load(root, config, traffic)
     g = load_graph(cfg["graph"], root / "gnnbench" / "cache")
-    ctx = SimpleNamespace(seed=seed, config=cfg, traffic=tra, deadline=float("inf"), graph=g)
+    ctx = SimpleNamespace(seed=seed, config=cfg, traffic=tra, ref=ref, deadline=float("inf"),
+                          graph=g)
     drive = harness.DRIVES[tra["drive"]](ctx)
     weights = ref.make_weights(cfg, g.num_nodes, g.num_classes, seed, device)
     trainer = harness.build_trainer(harness.dataset_of(g, cfg["name"]), cfg, tra, seed,

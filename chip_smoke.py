@@ -251,6 +251,7 @@ TT_SOURCE = "falcon_ttdforgnns_torch/csrc/tt_kernels.cu"
 SPMM_SOURCE = "falcon_ttdforgnns_torch/csrc/spmm_kernels.cu"
 TOWER_SOURCE = "falcon_ttdforgnns_torch/csrc/tower_kernels.cu"
 ATTN_SOURCE = "falcon_ttdforgnns_torch/csrc/attn_kernels.cu"
+OPTIM_SOURCE = "falcon_ttdforgnns_torch/csrc/optim_kernels.cu"
 # csr_mean_f32 against the card's chunked index_add_ over the whole graph:
 # max |diff| over max |plain|, f32 reassociation alone (~4e-7 at products)
 CSR_MEAN_REL_TOL = 1e-6
@@ -279,7 +280,9 @@ REPLACES = {  # the TPU kernel each one ports (its def line)
     "csr_mean_f32": "falcon_ttdforgnns_tpu/ops/segment.py:69",
     # none: the JAX package has no sampled GAT; its full-graph GAT's edge
     # softmax and weighted sum are XLA scatters
-    "csr_gat_bf16": None, "csr_gat_f32": None}
+    "csr_gat_bf16": None, "csr_gat_f32": None,
+    # none: the JAX package leaves the dense Adam to optax, which XLA fuses
+    "adam_f32": None}
 ARXIV = dict(p_shapes=(50, 60, 60), q_shapes=(8, 4, 4), tt_ranks=(16, 16))  # the arxiv preset
 
 
@@ -900,9 +903,9 @@ def train_steps(trainer, batches, label):
 
 def kernel_modules():
     """The wrapper modules, each with its KERNELS and launch counts."""
-    from falcon_ttdforgnns_torch.ops import (attention, segment, spmm_blocked, spmm_tiled, tower,
-                                             tt_kernels)
-    return tt_kernels, spmm_tiled, spmm_blocked, tower, segment, attention
+    from falcon_ttdforgnns_torch.ops import (adam, attention, segment, spmm_blocked, spmm_tiled,
+                                             tower, tt_kernels)
+    return tt_kernels, spmm_tiled, spmm_blocked, tower, segment, attention, adam
 
 
 def reset_counts() -> None:
@@ -3025,6 +3028,92 @@ def gat_kernel_check(ds, dev) -> dict:
     return res
 
 
+def adam_kernel_check(dev) -> dict:
+    """adam_f32 (the dense parameters' Adam, ops/adam.py) on the dense
+    cell's parameter list: the 2,449,029 x 100 --no-tt table and the SAGE 3
+    x 256 tower at feat_dim 100 and 47 classes.  Three steps of adam_update
+    (the kernel, one launch a step) against its plain body (adam_plain) on
+    the same card tensors, p, m and v bit for bit, the plateau scale a
+    device tensor; then timed (CUDA events, and the profiler's device time)
+    beside the plain chain and, as the library yardstick only,
+    torch.optim.Adam(fused=True).step on copies of the same tensors (the
+    port never calls it).  Bound: 28 bytes a value.  Returns its JSON
+    results."""
+    import torch
+    from falcon_ttdforgnns_torch.models.sage import SAGE
+    from falcon_ttdforgnns_torch.ops import adam
+    from falcon_ttdforgnns_torch.train.optim import (adam_init, adam_plain, adam_update,
+                                                     bias_corrections)
+    tower = SAGE(1, 100, 256, 47, 3, use_tt=False)
+    shapes = [(2449029, 100)] + [tuple(p.shape) for n, p in tower.named_parameters()
+                                 if not n.startswith("embed.")]
+    del tower
+    values = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    plain = [p.clone() for p in params]
+    sk, sp = adam_init(params), adam_init(plain)
+    scale = torch.full((), 0.5, device=dev)
+    reset_counts()
+    for _ in range(3):
+        grads = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+        adam_update(params, grads, sk, LR, scale)
+        sp.count += 1
+        adam_plain(plain, grads, sp.m, sp.v, *bias_corrections(sp.count), LR, scale)
+    launches = launched().get("adam_f32", 0)
+    for k, name in enumerate(["table"] + [f"tower {j}" for j in range(len(shapes) - 1)]):
+        for what, a, b in (("p", params[k], plain[k]), ("m", sk.m[k], sp.m[k]),
+                           ("v", sk.v[k], sp.v[k])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"adam_f32 on the dense cell's {name}: {what} not "
+                                     f"bit-identical to adam_update's plain body on the card")
+    if launches != 3:
+        raise AssertionError(f"adam_f32: {launches} launches in 3 steps over {len(shapes)} "
+                             f"tensors, not one a step")
+    log(f"  adam_f32 bit-identical to adam_update's plain body on the card over 3 steps: p, "
+        f"m and v of the {len(shapes)} tensors ({values} values), {launches} launches")
+    del plain, sp
+    torch.cuda.empty_cache()
+    bc1, bc2 = bias_corrections(sk.count)
+
+    def kernel():
+        adam.adam_f32_apply(params, grads, sk.m, sk.v, bc1, bc2, LR, scale, 0.0, 0.9, 0.999,
+                            1e-8)
+
+    ms = cuda_ms(kernel, 20, warmup=2)
+    dev_ms = device_ms(kernel)
+    plain_ms = cuda_ms(lambda: adam_plain(params, grads, sk.m, sk.v, bc1, bc2, LR, scale),
+                       3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernel()
+    rise = torch.cuda.max_memory_allocated() - before
+    lib = [p.clone() for p in params]
+    for p, g in zip(lib, grads):
+        p.grad = g
+    opt = torch.optim.Adam(lib, lr=LR, fused=True)
+    lib_ms = cuda_ms(opt.step, 20, warmup=2)
+    lib_dev_ms = device_ms(opt.step)
+    del lib, opt
+    bound, by = bound_ms(28 * values, 0)
+    gbs = 28 * values / 1e9
+
+    def fmt(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+
+    log(f"  adam_f32 over the dense cell's {values} values: {ms:.4f} ms ({gbs / ms:.3f} TB/s "
+        f"of its {gbs:.2f} GB), device {fmt(dev_ms)}, bound {bound:.4f} ms by {by} "
+        f"({100 * bound / ms:.1f}%), peak memory rise {rise} bytes; the plain chain "
+        f"{plain_ms:.3f} ms; torch.optim.Adam(fused=True).step {lib_ms:.4f} ms, device "
+        f"{fmt(lib_dev_ms)} (the yardstick only)")
+    if rise != 0:
+        raise AssertionError(f"adam_f32 allocated {rise} bytes")
+    return {"adam_f32": dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by, library_ms=lib_ms, device_ms=dev_ms,
+                             library_device_ms=lib_dev_ms)}
+
+
 def gat_phase(ds, dev, counts) -> None:
     """The sampled GAT at the published widths of gnnbench's gat-tt-products
     configuration (3 layers of 4 heads x 128, the last 4 x 47 averaged,
@@ -3505,8 +3594,8 @@ def main() -> int:
             elif "spill" in line and kernel:
                 spill = line.strip()
             elif "registers" in line and kernel:
-                short = re.search(r"(?:tt_(?!kernels_cu)|tile_sum|window_gather|fanout_mean)\w+",
-                                  kernel)
+                short = re.search(
+                    r"(?:tt_(?!kernels_cu)|tile_sum|window_gather|fanout_mean|adam_f32)\w+", kernel)
                 log(f"  ptxas {short.group(0)[:44] if short else kernel}: "
                     f"{line.split(':', 1)[1].strip()}; {spill}")
 
@@ -3586,6 +3675,9 @@ def main() -> int:
     reset_counts()
     tower_res.update(gat_kernel_check(ds, dev))
     counts["gat kernel phase"] = launched()
+    torch.cuda.empty_cache()
+    log("the dense table's Adam kernel against adam_update's plain body:")
+    tower_res.update(adam_kernel_check(dev))
     torch.cuda.empty_cache()
     log("tt_fwd, tt_fwd_sr and tt_grads at every rank of the tuner's box (C3):")
     rank_phase(dev)
@@ -3691,10 +3783,12 @@ def main() -> int:
                "spmm_gather": "full-graph gcn blocked",
                "fanout_mean_bf16": "main", "fanout_mean_bf16[bwd]": "main",
                "segment_mean_bf16": "bf16 evaluate", "csr_mean_f32": "bf16 evaluate",
-               "csr_gat_bf16": "gat evaluate", "csr_gat_f32": "gat kernel phase"}
+               "csr_gat_bf16": "gat evaluate", "csr_gat_f32": "gat kernel phase",
+               "adam_f32": "baseline"}
     kernels = [{"name": n, "route": "cuda",
                 "source": (TT_SOURCE if n.startswith("tt_") else ATTN_SOURCE
-                           if n.startswith("csr_gat") else TOWER_SOURCE
+                           if n.startswith("csr_gat") else OPTIM_SOURCE
+                           if n.startswith("adam_") else TOWER_SOURCE
                            if n.startswith(("fanout_", "segment_", "csr_")) else SPMM_SOURCE),
                 "replaces": REPLACES[n], "launches": counts[path_of[n]][n],
                 "launched_by": path_of[n],

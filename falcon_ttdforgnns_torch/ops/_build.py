@@ -62,9 +62,14 @@ _SIGNATURES: Dict[str, Dict[str, list]] = {
         "csr_gat_bf16": [_p, _p, _p, _p, _p, _ll, _i, _i, _i, _p, _p],
         "csr_gat_f32": [_p, _p, _p, _p, _p, _ll, _i, _i, _i, _p, _p],
     },
+    "optim_kernels": {
+        "adam_f32_apply": [_i, _pp, _pp, _pp, _pp, ctypes.POINTER(_ll), _p, _p, _p, _f, _f, _f,
+                           _i, _f, _f, _f, _f, _f, _p],
+    },
 }
 _ERROR_STRING = {"tt_kernels": "tt_error_string", "spmm_kernels": "spmm_error_string",
-                 "tower_kernels": "tower_error_string", "attn_kernels": "attn_error_string"}
+                 "tower_kernels": "tower_error_string", "attn_kernels": "attn_error_string",
+                 "optim_kernels": "optim_error_string"}
 SOURCES = tuple(_SIGNATURES)
 
 

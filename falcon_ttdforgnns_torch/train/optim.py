@@ -14,9 +14,11 @@ with them.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
+
+from ..ops.adam import adam_f32_apply
 
 ADAGRAD_EPS = 1e-10
 ROWWISE_ADAGRAD_EPS = 1e-8
@@ -61,15 +63,35 @@ def bias_corrections(count: torch.Tensor, b1: float = ADAM_B1,
 
 @torch.no_grad()
 def adam_update(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-                state: AdamState, lr: float, scale: torch.Tensor,
+                state: AdamState, lr: float, scale: Union[torch.Tensor, float],
                 weight_decay: float = 0.0, b1: float = ADAM_B1,
                 b2: float = ADAM_B2, eps: float = ADAM_EPS) -> None:
     """One in-place step of ``optax.adam`` (``adamw`` when weight_decay >
     0) followed by the plateau ``scale`` on the update:
-    p += scale * -lr * (m_hat / (sqrt(v_hat) + eps) [+ wd * p])."""
+    p += scale * -lr * (m_hat / (sqrt(v_hat) + eps) [+ wd * p]).
+    CPU tensors take :func:`adam_plain`; CUDA tensors the kernel
+    ``adam_f32`` (``ops/adam.py``), one launch for the list, bit-identical
+    to :func:`adam_plain` on the card."""
     state.count += 1
     bc1, bc2 = bias_corrections(state.count, b1, b2)
-    for p, g, m, v in zip(params, grads, state.m, state.v):
+    if any(p.is_cuda for p in params):
+        adam_f32_apply(params, grads, state.m, state.v, bc1, bc2, lr, scale, weight_decay,
+                       b1, b2, eps)
+    else:
+        adam_plain(params, grads, state.m, state.v, bc1, bc2, lr, scale, weight_decay,
+                   b1, b2, eps)
+
+
+@torch.no_grad()
+def adam_plain(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+               ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor], bc1: torch.Tensor,
+               bc2: torch.Tensor, lr: float, scale: Union[torch.Tensor, float],
+               weight_decay: float = 0.0, b1: float = ADAM_B1, b2: float = ADAM_B2,
+               eps: float = ADAM_EPS) -> None:
+    """:func:`adam_update`'s step after its count and bias corrections, in
+    plain PyTorch: the version for CPU tensors, and what the kernel is
+    held to on the card."""
+    for p, g, m, v in zip(params, grads, ms, vs):
         m.copy_((1.0 - b1) * g + b1 * m)
         v.copy_((1.0 - b2) * (g * g) + b2 * v)
         u = (m / bc1) / (torch.sqrt(v / bc2) + eps)

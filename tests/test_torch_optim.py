@@ -16,10 +16,11 @@ from falcon_ttdforgnns_tpu.train.optim import reduce_on_plateau as jax_plateau
 from falcon_ttdforgnns_tpu.train.optim import rowwise_adagrad as jax_rowwise_adagrad
 from falcon_ttdforgnns_tpu.train.optim import tt_adagrad as jax_tt_adagrad
 
-from falcon_ttdforgnns_torch.train.optim import (adam_init, adam_update,
-                                                 auto_plateau_patience, core_update,
-                                                 plateau_init, reduce_on_plateau,
-                                                 tt_acc_init)
+from falcon_ttdforgnns_torch.ops import adam
+from falcon_ttdforgnns_torch.train.optim import (adam_init, adam_plain, adam_update,
+                                                 auto_plateau_patience, bias_corrections,
+                                                 core_update, plateau_init,
+                                                 reduce_on_plateau, tt_acc_init)
 
 LOSSES = [1.0, 0.9, 0.95, 0.94, 0.93, 0.92, 0.5, 0.6, 0.6, 0.6, 0.61, 0.6, 0.59,
           0.7, 0.8, 0.9, 1.0, 1.1]
@@ -99,3 +100,39 @@ def test_adam_with_plateau_scale_matches_optax(wd):
         for a, b in zip(tp, jp):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
     assert int(ts.count) == 3
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("scale", [torch.tensor(0.5), 1.0], ids=["tensor", "float"])
+def test_adam_update_on_cpu_is_the_plain_body(wd, scale):
+    """On CPU tensors adam_update launches no kernel and leaves p, m and v
+    equal, bit for bit, to its plain body run after the same count and
+    bias corrections, over three steps."""
+    gen = torch.Generator().manual_seed(4)
+    shapes = [(6, 5), (7,), (3, 1, 3)]
+    got = [torch.randn(s, generator=gen) for s in shapes]
+    want = [p.clone() for p in got]
+    sg, sw = adam_init(got), adam_init(want)
+    adam.reset_launch_counts()
+    for _ in range(3):
+        grads = [torch.randn(s, generator=gen) for s in shapes]
+        adam_update(got, grads, sg, 0.01, scale, wd)
+        sw.count += 1
+        adam_plain(want, grads, sw.m, sw.v, *bias_corrections(sw.count), 0.01, scale, wd)
+    assert adam.launch_counts() == {"adam_f32": 0}
+    for a, b in zip(got + sg.m + sg.v, want + sw.m + sw.v):
+        assert torch.equal(a, b)
+    assert int(sg.count) == 3
+
+
+def test_adam_f32_apply_refuses_what_the_kernel_does_not_take():
+    """The kernel's wrapper takes CUDA tensors only (their plain version is
+    adam_update's body) and lists of one length."""
+    p = [torch.zeros(4)]
+    bc = bias_corrections(torch.ones((), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        adam.adam_f32_apply(p, p, p, p, *bc, 0.01, 1.0, 0.0, 0.9, 0.999, 1e-8)
+    with pytest.raises(ValueError, match="grads"):
+        adam.adam_f32_apply(p, p + p, p, p, *bc, 0.01, 1.0, 0.0, 0.9, 0.999, 1e-8)
+    adam.adam_f32_apply([], [], [], [], *bc, 0.01, 1.0, 0.0, 0.9, 0.999, 1e-8)
+    assert adam.launch_counts()["adam_f32"] == 0

@@ -2393,7 +2393,7 @@ def full_neighbor_phase(ds, config, K, dev, counts) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tr = SageTrainer(cut(ds, S), config(use_sample=False), device=dev)
-    tr._eval_graph()  # the edge list on the card before the counted steps
+    tr._full_graph()  # the edge list on the card before the counted steps
     log(f"--full-neighbor: SAGE {tr.cfg.num_layers}x{tr.cfg.hidden_dim}, f32, batch "
         f"{tr.cfg.batch_size}, {S} steps over {ds.graph.num_edges} edges each")
     counts["full-neighbor"] = counted_epoch(tr, 0, "full-neighbor", ("tt_fwd", "tt_grads"), S)
@@ -2478,13 +2478,13 @@ def node_shard_phase(ds, config, dev, counts) -> None:
             two = SageTrainer(cut(ds, S), cfg, device=dev)
             for tr in (one, two):
                 tr.model.load_state_dict(ns.model.state_dict())
-                tr._eval_graph()  # the edge list on the card before the timed steps
+                tr._full_graph()  # the edge list on the card before the timed steps
             # the identity: the first batch's loss and gradients, no update
             pick = np.random.default_rng(cfg.seed).permutation(ns.ds.train_idx)[:cfg.batch_size]
             loss_ns, _, grads_ns = ns.node_sharded_grads(pick)
-            src, dst, deg, labels, *_ = one._eval_graph()
+            labels = one._eval_labels()[0]
             seeds = torch.as_tensor(pick.astype(np.int64), device=dev)
-            logits = one.model.forward_full_graph(src, dst, deg, chunk=cfg.edge_chunk)
+            logits = one.model.forward_full_graph(one._full_graph())
             loss_one = torch.nn.functional.cross_entropy(logits.index_select(0, seeds),
                                                          labels.index_select(0, seeds))
             grads_one = torch.autograd.grad(loss_one, one._trained())
@@ -2813,40 +2813,33 @@ def segment_kernel_check(ds, dev) -> dict:
     import torch
     from falcon_ttdforgnns_torch.ops import segment
     g, n = ds.graph, ds.num_nodes
-    indptr = torch.tensor(g.indptr.astype(np.int64), device=dev)
-    src = torch.tensor(g.indices.astype(np.int64), device=dev)
+    index, dst, s_index, (lo, hi, top) = row_indexes(g, dev)
     deg_np = np.diff(g.indptr)
     deg = torch.tensor(deg_np.astype(np.float32), device=dev)
-    top = int(deg_np.argmax())
-    lo, hi = max(0, top - 20000), min(n, top + 20000)
-    e0, e1 = int(g.indptr[lo]), int(g.indptr[hi])
-    s_ptr = torch.cat([indptr[lo:hi + 1] - e0,
-                       torch.full((64,), e1 - e0, dtype=torch.int64, device=dev)])
-    s_src, s_deg = src[e0:e1], torch.cat([deg[lo:hi], torch.zeros(64, device=dev)])
+    s_deg = torch.cat([deg[lo:hi], torch.zeros(64, device=dev)])
     gen = torch.Generator(device=dev).manual_seed(5)
     for d in (100, 256):
         for scale in (1.0, 3e4):
             h = (torch.randn(n, d, generator=gen, device=dev) * scale).to(torch.bfloat16)
-            got = segment.segment_mean_bf16(h, s_src, s_ptr, s_deg)
-            want = segment.segment_mean_bf16_plain(h, s_src, s_ptr, s_deg)
+            got = segment.segment_mean_bf16(h, s_index, s_deg)
+            want = segment.segment_mean_bf16_plain(h, s_index.src, s_index.indptr, s_deg)
             if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
                 raise AssertionError(f"segment_mean_bf16 at D={d}, scale {scale}: not "
                                      f"bit-identical to its plain version")
     log(f"  segment_mean_bf16 bit-identical to its plain version on rows {lo}..{hi - 1} "
         f"(in-degree up to {int(deg_np[top])} at row {top}) and 64 rows without in-edges, "
         f"D = 100 and 256, values N(0, 1) and N(0, 3e4^2)")
-    dst = torch.repeat_interleave(torch.arange(n, device=dev), indptr[1:] - indptr[:-1])
-    res = {}
+    src, res = index.src, {}
     for d in (100, 256):
         h = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
         reset_counts()
-        ms = cuda_ms(lambda: segment.segment_mean_bf16(h, src, indptr, deg), 5)
+        ms = cuda_ms(lambda: segment.segment_mean_bf16(h, index, deg), 5)
         launches = launched().get("segment_mean_bf16", 0)
         t0 = time.perf_counter()
-        plain = segment.segment_mean_bf16_plain(h, src, indptr, deg)
+        plain = segment.segment_mean_bf16_plain(h, src, index.indptr, deg)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        got = segment.segment_mean_bf16(h, src, indptr, deg)
+        got = segment.segment_mean_bf16(h, index, deg)
         if not torch.equal(got.view(torch.int16), plain.view(torch.int16)):
             raise AssertionError(f"segment_mean_bf16 over the whole graph at D={d}: not "
                                  f"bit-identical to its plain version")
@@ -2862,8 +2855,27 @@ def segment_kernel_check(ds, dev) -> dict:
             res["segment_mean_bf16"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                                             bound_ms=bound, bound_by=by, library_ms=None,
                                             index_add_ms=add_ms)
-    res.update(csr_mean_check(g, (s_src, s_ptr, s_deg), (src, indptr, deg, dst), gen, dev))
+    res.update(csr_mean_check(g, (s_index, s_deg), (index, deg, dst), gen, dev))
     return res
+
+
+def row_indexes(g, dev):
+    """The row index of the graph's in-edges on the card, their dst, and
+    the index of a slice of its rows around its highest in-degree row plus
+    64 rows without in-edges, whose sources index every row; (index, dst,
+    slice index, (lo, hi, top)): the slice is rows lo..hi - 1, top the
+    highest in-degree row."""
+    import torch
+    from falcon_ttdforgnns_torch.ops import segment
+    n = g.num_nodes
+    indptr = torch.tensor(g.indptr.astype(np.int64), device=dev)
+    src = torch.tensor(g.indices.astype(np.int64), device=dev)
+    dst = torch.repeat_interleave(torch.arange(n, device=dev), indptr.diff())
+    top = int(np.diff(g.indptr).argmax())
+    lo, hi = max(0, top - 20000), min(n, top + 20000)
+    e0, e1 = int(g.indptr[lo]), int(g.indptr[hi])
+    return (segment.edges_by_row(src, dst, n), dst,
+            segment.edges_by_row(src[e0:e1], dst[e0:e1] - lo, hi - lo + 64, n), (lo, hi, top))
 
 
 def csr_mean_check(g, rows_slice, rows_all, gen, dev) -> dict:
@@ -2881,16 +2893,17 @@ def csr_mean_check(g, rows_slice, rows_all, gen, dev) -> dict:
     import torch
     from falcon_ttdforgnns_torch.ops import segment
     n = g.num_nodes
-    s_src, s_ptr, s_deg = rows_slice
-    src, indptr, deg, dst = rows_all
-    cpu = [t.cpu() for t in rows_slice]
+    s_index, s_deg = rows_slice
+    index, deg, dst = rows_all
+    src = index.src
+    cpu = [t.cpu() for t in (s_index.src, s_index.indptr, s_deg)]
     for d in (100, 256):
         h = torch.randn(n, d, generator=gen, device=dev)
         buf = torch.empty(n * d + 1, device=dev)
         buf[1:] = h.reshape(-1)
         want = segment.csr_mean_f32_plain(h.cpu(), *cpu)
         for label, x in (("aligned", h), ("one float past 16 bytes", buf[1:].view(n, d))):
-            got = segment.csr_mean_f32(x, s_src, s_ptr, s_deg).cpu()
+            got = segment.csr_mean_f32(x, s_index, s_deg).cpu()
             if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
                 raise AssertionError(f"csr_mean_f32 at D={d}, h {label}: not bit-identical to "
                                      f"its plain version on the CPU")
@@ -2902,15 +2915,15 @@ def csr_mean_check(g, rows_slice, rows_all, gen, dev) -> dict:
     for d in (100, 256):
         h = torch.randn(n, d, generator=gen, device=dev)
         reset_counts()
-        ms = cuda_ms(lambda: segment.csr_mean_f32(h, src, indptr, deg), 5)
+        ms = cuda_ms(lambda: segment.csr_mean_f32(h, index, deg), 5)
         launches = launched().get("csr_mean_f32", 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain = segment.csr_mean_f32_plain(h, src, indptr, deg)
+        plain = segment.csr_mean_f32_plain(h, src, index.indptr, deg)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         chunked_ms = cuda_ms(lambda: segment.spmm_sum_chunked(h, src, dst, n) / degc, 3)
-        got = segment.csr_mean_f32(h, src, indptr, deg)
+        got = segment.csr_mean_f32(h, index, deg)
         abs_err = float((got - plain).abs().max())
         err = abs_err / float(plain.abs().max())
         del plain, got
@@ -2947,15 +2960,8 @@ def gat_kernel_check(ds, dev) -> dict:
     import torch
     from falcon_ttdforgnns_torch.ops import attention, segment
     g, n = ds.graph, ds.num_nodes
-    indptr = torch.tensor(g.indptr.astype(np.int64), device=dev)
-    src = torch.tensor(g.indices.astype(np.int64), device=dev)
-    deg_np = np.diff(g.indptr)
-    top = int(deg_np.argmax())
-    lo, hi = max(0, top - 20000), min(n, top + 20000)
-    e0, e1 = int(g.indptr[lo]), int(g.indptr[hi])
-    s_ptr = torch.cat([indptr[lo:hi + 1] - e0,
-                       torch.full((64,), e1 - e0, dtype=torch.int64, device=dev)])
-    s_src, rows = src[e0:e1], hi - lo + 64
+    index, dst, s_index, (lo, hi, top) = row_indexes(g, dev)
+    deg_np, src, rows = np.diff(g.indptr), index.src, s_index.num_rows
     gen = torch.Generator(device=dev).manual_seed(9)
     shapes = ((4, 128, False), (4, 48, True))
     for dtype in (torch.bfloat16, torch.float32):
@@ -2964,9 +2970,10 @@ def gat_kernel_check(ds, dev) -> dict:
             x = torch.randn(n + 64, heads * cp, generator=gen, device=dev).to(dtype)
             el = torch.randn(n + 64, heads, generator=gen, device=dev) * 2
             er = torch.randn(rows, heads, generator=gen, device=dev) * 2
-            want = attention.csr_gat_plain(*(t.cpu() for t in (x.float(), el, er, s_src, s_ptr)),
-                                           heads, mean)
-            got = attention.csr_gat(x, el, er, s_src, s_ptr, heads, mean).cpu().float()
+            want = attention.csr_gat_plain(
+                *(t.cpu() for t in (x.float(), el, er, s_index.src, s_index.indptr)), heads,
+                mean)
+            got = attention.csr_gat(x, el, er, s_index, heads, mean).cpu().float()
             tol = 1e-5 * float(want.abs().max()) + (2.0 ** -8 * want.abs()
                                                     if dtype == torch.bfloat16 else 0.0)
             if not bool(((got - want).abs() <= tol).all()):
@@ -2976,7 +2983,6 @@ def gat_kernel_check(ds, dev) -> dict:
         f"{lo}..{hi - 1} (in-degree up to {int(deg_np[top])}) and 64 rows without in-edges, "
         f"4 x 128 side by side and 4 x 48 averaged (f32 1e-5 of max |plain|, bf16 one step)")
     E, res = src.numel(), {}
-    dst = torch.repeat_interleave(torch.arange(n, device=dev), indptr.diff())
     for dtype, (heads, cp, mean) in ((torch.bfloat16, shapes[0]), (torch.bfloat16, shapes[1]),
                                      (torch.float32, shapes[0])):
         name = "csr_gat_bf16" if dtype == torch.bfloat16 else "csr_gat_f32"
@@ -2984,11 +2990,11 @@ def gat_kernel_check(ds, dev) -> dict:
         el = torch.randn(n, heads, generator=gen, device=dev) * 2
         er = torch.randn(n, heads, generator=gen, device=dev) * 2
         reset_counts()
-        ms = cuda_ms(lambda: attention.csr_gat(x, el, er, src, indptr, heads, mean), 5)
+        ms = cuda_ms(lambda: attention.csr_gat(x, el, er, index, heads, mean), 5)
         launches = launched().get(name, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        attention.csr_gat_plain(x, el, er, src, indptr, heads, mean)
+        attention.csr_gat_plain(x, el, er, src, index.indptr, heads, mean)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         d, c = heads * cp, 47 if mean else cp  # the last layer's useful columns

@@ -6,9 +6,8 @@ This model is the port's own: the JAX package has no sampled GAT (its
 ``models/gat.py`` is the full-graph arxiv recipe, ``models/gat.py`` here).
 It keeps :class:`models.sage.SAGE`'s interface, which the trainer reaches
 it through: ``forward`` and ``forward_from_embeddings`` on the sampler's
-dense-fanout levels, ``_conv_tower``, ``forward_full_graph`` and
-``forward_full`` for layer-wise evaluation, ``materialize_features`` and
-``embed``.
+dense-fanout levels, ``_conv_tower``, ``forward_full_graph`` for
+layer-wise evaluation, ``materialize_features`` and ``embed``.
 
 Layer l (:class:`GATNSConv`) maps h to
 
@@ -26,9 +25,9 @@ Training runs on the sampler's levels: level ``lev`` holds each slot's f
 children in level ``lev + 1``, and each destination slot's softmax runs
 over its f sampled slots and its own slot, duplicates included, as plain
 torch ops under autograd.  Evaluation walks each row's in-edges through
-:func:`ops.attention.csr_gat`, one call a layer, over the row index that
-:func:`ops.segment.edges_by_row` builds once a forward; a head's width is
-padded there to the kernel's 16-byte loads with zero weights.
+:func:`ops.attention.csr_gat`, one call a layer, over the row index of
+the trainer's :class:`ops.segment.FullGraph`; a head's width is padded
+there to the kernel's 16-byte loads with zero weights.
 
 ``bf16`` runs the rows, the products and the activations in bfloat16
 (the parameters stay f32 and are cast); el, er, the scores, the softmax
@@ -48,7 +47,7 @@ from torch import nn
 
 from ..nn.layers import dropout, lecun_normal_
 from ..ops.attention import NEGATIVE_SLOPE, VECTOR, csr_gat
-from ..ops.segment import edges_by_row
+from ..ops.segment import FullGraph, RowIndex
 from ..utils.metrics import span
 from .sage import SAGE, make_embed_layer
 
@@ -197,36 +196,23 @@ class GATNS(nn.Module):
                 hs = new_hs
             return hs[0][:, 0, :].float()  # (B, num_classes)
 
-    def forward_full_graph(self, src: torch.Tensor, dst: torch.Tensor,
-                           in_deg: torch.Tensor, train: bool = False,
-                           chunk: int = 1 << 22,
+    def forward_full_graph(self, graph: FullGraph, train: bool = False,
                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Logits (f32) of every node by layer-wise full-graph propagation
-        over every in-edge: the lookup of every row, the row index once,
-        then :meth:`forward_full` a layer.  Forward only."""
+        over every in-edge of ``graph``: the lookup of every row, then
+        :meth:`_full_layer` a layer through the graph's row index.  Forward
+        only."""
         if train or torch.is_grad_enabled():
             raise ValueError("the sampled GAT's full-graph forward is forward only: "
                              "train it on sampled levels")
         with span("embed.lookup"):
-            h = self.embed(torch.arange(self.num_nodes, dtype=torch.int32, device=src.device),
-                           count_accesses=False)
-        rows = edges_by_row(src, dst, self.num_nodes)
+            h = self.embed(torch.arange(self.num_nodes, dtype=torch.int32,
+                                        device=graph.src.device), count_accesses=False)
         for li in range(self.num_layers):
-            h = self._full_layer(h, li, rows)
+            h = self._full_layer(h, li, graph.index())
         return h.float()[:, :self.convs[-1].out_dim]
 
-    def forward_full(self, h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-                     in_deg: torch.Tensor, num_nodes: int, layer_idx: int,
-                     chunk: int = 1 << 22, rows: Optional[tuple] = None) -> torch.Tensor:
-        """One layer over the full graph (layer-wise inference) through
-        ``rows``, :func:`edges_by_row` of the edges, built here where not
-        given."""
-        if rows is None:
-            rows = edges_by_row(src, dst, num_nodes)
-        conv, out = self.convs[layer_idx], self._full_layer(h, layer_idx, rows)
-        return out if conv.concat else out[:, :conv.out_dim]
-
-    def _full_layer(self, h: torch.Tensor, li: int, rows: tuple) -> torch.Tensor:
+    def _full_layer(self, h: torch.Tensor, li: int, index: RowIndex) -> torch.Tensor:
         """Layer ``li`` over every in-edge and self-loop: the projection with
         each head padded to the kernel's 16-byte loads, the attention, then
         the skip with both biases plus the attention's result and, but after
@@ -238,7 +224,7 @@ class GATNS(nn.Module):
         with span("tower.conv"):
             x, el, er = conv.project(h, pad)
         with span("attn.aggregate"):
-            agg = csr_gat(x, el, er, *rows, conv.heads, not conv.concat)
+            agg = csr_gat(x, el, er, index, conv.heads, not conv.concat)
         del x, el, er
         if pad and conv.concat:  # the heads side by side: drop each head's padding
             n, cp = agg.shape[0], conv.out_dim + pad

@@ -25,7 +25,7 @@ from torch import nn
 from ..nn.layers import SAGEConv, dropout
 from ..nn.tt_embedding import (AccessCountingEmbedding, DenseEmbedding,
                                FixedFeatureEmbedding, TTEmbeddingBag)
-from ..ops.segment import edges_by_row, spmm_mean
+from ..ops.segment import FullGraph
 from ..ops.tower import fanout_mean_bf16
 from ..utils.metrics import span
 
@@ -149,25 +149,18 @@ class SAGE(nn.Module):
         sizes = [1] + [l.reshape(B, -1).shape[1] for l in layers]
         return self._conv_tower(self._split_levels(h_all, sizes, B), train, generator)
 
-    def forward_full_graph(self, src: torch.Tensor, dst: torch.Tensor,
-                           in_deg: torch.Tensor, train: bool = False,
-                           chunk: int = 1 << 22,
+    def forward_full_graph(self, graph: FullGraph, train: bool = False,
                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Logits of every node by full-graph propagation (exact
-        aggregation over every edge).  Each conv keeps its dtype here, as
-        the JAX convs do: under ``bf16`` the activations after the first
-        conv, their SpMM and the logits are bf16.  Without a gradient the
-        edges' row index is built once, in the first layer's aggregation,
-        and serves every layer."""
+        aggregation over every edge of ``graph``).  Each conv keeps its
+        dtype here, as the JAX convs do: under ``bf16`` the activations
+        after the first conv, their SpMM and the logits are bf16."""
         with span("embed.lookup"):
-            h = self.embed(torch.arange(self.num_nodes, dtype=torch.int32, device=src.device),
-                           count_accesses=train)
-        rows = None
+            h = self.embed(torch.arange(self.num_nodes, dtype=torch.int32,
+                                        device=graph.src.device), count_accesses=train)
         for li, conv in enumerate(self.convs):
             with span("spmm.aggregate"):
-                if li == 0 and not torch.is_grad_enabled():
-                    rows = edges_by_row(src, dst, self.num_nodes)
-                agg = spmm_mean(h, src, dst, self.num_nodes, in_deg, chunk=chunk, rows=rows)
+                agg = graph.mean(h)
             with span("tower.conv"):
                 h = conv(h, agg)
                 if li < self.num_layers - 1:
@@ -180,16 +173,6 @@ class SAGE(nn.Module):
         with span("tower.conv"):
             h = self.convs[layer_idx](h_dst, h_neigh)
             return torch.relu(h) if layer_idx < self.num_layers - 1 else h
-
-    def forward_full(self, h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-                     in_deg: torch.Tensor, num_nodes: int, layer_idx: int,
-                     chunk: int = 1 << 22, rows: Optional[tuple] = None) -> torch.Tensor:
-        """One conv layer over the full graph (layer-wise inference): the
-        mean over every in-edge (through ``rows``, the edges' row index,
-        where given), then the conv."""
-        with span("spmm.aggregate"):
-            agg = spmm_mean(h, src, dst, num_nodes, in_deg, chunk=chunk, rows=rows)
-        return self.apply_conv(h, agg, layer_idx)
 
     def materialize_features(self, node_ids: torch.Tensor) -> torch.Tensor:
         """Rows of the feature table (cache hits from the cache); counts no

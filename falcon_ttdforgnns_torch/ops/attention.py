@@ -10,8 +10,9 @@ a CUDA tensor it launches its kernel or raises.  Every launch adds one to
 its entry in :func:`launch_counts`.  Both are forward only: the sampled GAT
 trains on the sampler's levels (``models/gat_ns.py``).
 
-The row index is :func:`ops.segment.edges_by_row`'s ``(src, indptr)``,
-which a full-graph forward builds once and hands to every layer.
+The row index is :class:`ops.segment.RowIndex`, which a trainer's
+:class:`ops.segment.FullGraph` builds and checks once; the wrapper checks
+its arguments against it with the means' :func:`ops.segment.csr_check`.
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..utils.metrics import count
 from . import _build
+from .segment import RowIndex, csr_check
 
 NEGATIVE_SLOPE = 0.2  # leaky_relu on the attention scores
 KERNELS = ("csr_gat_bf16", "csr_gat_f32")
@@ -66,51 +67,34 @@ def csr_gat_plain(x: torch.Tensor, el: torch.Tensor, er: torch.Tensor, src: torc
     return out.to(x.dtype)
 
 
-def csr_gat(x: torch.Tensor, el: torch.Tensor, er: torch.Tensor, src: torch.Tensor,
-            indptr: torch.Tensor, heads: int, mean: bool) -> torch.Tensor:
+def csr_gat(x: torch.Tensor, el: torch.Tensor, er: torch.Tensor, index: RowIndex,
+            heads: int, mean: bool) -> torch.Tensor:
     """The kernels' wrapper: x (n_x, heads * Cp) bf16 or f32, el (n_x, heads)
-    f32, er (N, heads) f32, src (E,) int64 in row order, indptr (N + 1,)
-    int64 -> (N, heads * Cp), or (N, Cp) with ``mean``, in x's dtype (see
-    :func:`csr_gat_plain`).  Forward only.  On the card Cp must be a
-    multiple of 8 (bf16) or 4 (f32) values, 16 bytes, and a row at most 128
-    such loads; its bound checks read one set of values into the host
-    (``spmm.host_reads``)."""
-    if x.dtype not in VECTOR:
-        raise TypeError(f"csr_gat takes bfloat16 or float32, not {x.dtype}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, el, er)):
-        raise ValueError("csr_gat is forward only")
-    n = indptr.shape[0] - 1
+    f32, er (N, heads) f32, the row index of N rows -> (N, heads * Cp), or
+    (N, Cp) with ``mean``, in x's dtype (see :func:`csr_gat_plain`).  Forward
+    only.  On the card Cp must be a multiple of 8 (bf16) or 4 (f32) values,
+    16 bytes, and a row at most 128 such loads."""
+    n = index.num_rows
     if x.dim() != 2 or x.shape[1] % heads or el.shape != (x.shape[0], heads) or \
             er.shape != (n, heads) or n > x.shape[0]:
         raise ValueError(f"csr_gat: x {tuple(x.shape)}, el {tuple(el.shape)}, er "
                          f"{tuple(er.shape)} for {heads} heads and {n} rows")
     if el.dtype != torch.float32 or er.dtype != torch.float32:
         raise TypeError("csr_gat: el and er are float32")
-    if src.dtype != torch.int64 or indptr.dtype != torch.int64 or src.dim() != 1:
-        raise TypeError("csr_gat: src and indptr are 1-D int64")
-    tensors = (x, el, er, src, indptr)
-    if {t.device.type for t in tensors} == {"cpu"}:
-        return csr_gat_plain(x, el, er, src, indptr, heads, mean)
-    if len({t.device for t in tensors}) != 1 or x.device.type != "cuda":
-        raise ValueError(f"csr_gat takes tensors on one CUDA device or on the CPU, got "
-                         f"{', '.join(str(t.device) for t in tensors)}")
+    if not csr_check("csr_gat", index, x, tuple(VECTOR), (er,), (el,)):
+        return csr_gat_plain(x, el, er, index.src, index.indptr, heads, mean)
     cp, vec = x.shape[1] // heads, VECTOR[x.dtype]
     if cp % vec or x.shape[1] > 128 * vec:
         raise ValueError(f"csr_gat: a head's width {cp} is no multiple of {vec} values "
                          f"(16 bytes; pad the heads), or a row of {x.shape[1]} passes "
                          f"{128 * vec} (a warp's 128 loads)")
-    count("spmm.host_reads")
-    first, last, *lim = torch.stack([indptr[0], indptr[-1],
-                                     *(torch.aminmax(src) if src.numel() else ())]).tolist()
-    if first != 0 or last != src.shape[0] or (lim and (lim[0] < 0 or lim[1] >= x.shape[0])):
-        raise ValueError("csr_gat: indptr must span src, and src index rows of x")
     x, el, er = x.contiguous(), el.contiguous(), er.contiguous()
-    src, indptr = src.contiguous(), indptr.contiguous()
     out = torch.empty((n, cp if mean else x.shape[1]), dtype=x.dtype, device=x.device)
     name = "csr_gat_bf16" if x.dtype == torch.bfloat16 else "csr_gat_f32"
     rc = getattr(_build.library("attn_kernels"), name)(
-        x.data_ptr(), el.data_ptr(), er.data_ptr(), src.data_ptr(), indptr.data_ptr(), n,
-        heads, cp, int(mean), out.data_ptr(), _build.current_stream(x.get_device()))
+        x.data_ptr(), el.data_ptr(), er.data_ptr(), index.src.data_ptr(),
+        index.indptr.data_ptr(), n, heads, cp, int(mean), out.data_ptr(),
+        _build.current_stream(x.get_device()))
     _build.check(rc, name, "attn_kernels")
     if n:
         _launches[name] += 1

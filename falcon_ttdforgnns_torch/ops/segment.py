@@ -23,12 +23,15 @@ whose lookup rows are f32, and every layer of an f32 one) goes through
 which sums each row's in-edges in edge order where they lie instead of
 materialising the chunked scatter's (chunk, D) messages; its plain version
 :func:`csr_mean_f32_plain` is that scatter in edge order.  Both forward-only
-means read the row index :func:`edges_by_row`, which a full-graph forward
-builds once and hands to every layer.
+means read the row index :class:`RowIndex`, which :func:`edges_by_row`
+builds and checks; :class:`FullGraph` holds a graph's edges with their
+index, built once for its life, and decides which layout serves a mean.
+The CSR wrappers share one check on host integers, :func:`csr_check`.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import torch
@@ -107,25 +110,86 @@ def spmm_sum_chunked(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     return ChunkedSpmm.apply(h, src, dst, num_nodes, edge_weight, chunk)
 
 
-def edges_by_row(src: torch.Tensor, dst: torch.Tensor,
-                 num_nodes: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The COO edges as CSR rows of their destinations: (src in row order,
-    indptr (num_nodes + 1,) int64, whose ``diff()`` is each row's
-    in-degree).  Each row keeps its edges in their COO order:
-    ``CSRGraph.to_coo()`` edges, whose dst is non-decreasing, are taken as
-    they are, others by a stable sort.  The order check reads one value
-    into the host (``spmm.host_reads``); the whole build is the span
+@dataclass(frozen=True)
+class RowIndex:
+    """The COO edges as CSR rows of their destinations, as
+    :func:`edges_by_row` makes and checks it: ``src`` (E,) int64, the
+    sources in row order, each row's edges in their COO order; ``indptr``
+    (N + 1,) int64, which spans ``src`` and whose ``diff()`` is each row's
+    in-degree; ``num_src``, the count of rows that ``src`` may index."""
+
+    src: torch.Tensor
+    indptr: torch.Tensor
+    num_src: int
+
+    @property
+    def num_rows(self) -> int:
+        return self.indptr.shape[0] - 1
+
+
+def edges_by_row(src: torch.Tensor, dst: torch.Tensor, num_nodes: int,
+                 num_src: Optional[int] = None) -> RowIndex:
+    """The row index of the COO edges ``src -> dst`` over ``num_nodes``
+    destination rows, whose sources index ``num_src`` rows (``num_nodes``
+    where None).  ``CSRGraph.to_coo()`` edges, whose dst is non-decreasing,
+    are taken as they are, others by a stable sort.  Refuses, before it
+    builds anything, a dst outside ``[0, num_nodes)``, a src outside
+    ``[0, num_src)`` and a src and dst of different lengths (whose
+    ``indptr`` could not span ``src``): the order and both bounds come to
+    the host in one read (``spmm.host_reads``).  The whole build is the span
     ``spmm.rows``."""
+    num_src = num_nodes if num_src is None else num_src
     with span("spmm.rows"):
-        if dst.numel() > 1:
+        if src.dim() != 1 or src.shape != dst.shape:
+            raise ValueError(f"edges_by_row: src {tuple(src.shape)} and dst "
+                             f"{tuple(dst.shape)} are not one edge list: indptr would "
+                             f"not span src")
+        if dst.numel():
             count("spmm.host_reads")
-            if bool((dst[1:] < dst[:-1]).any()):
+            lo_d, hi_d, lo_s, hi_s, unsorted = torch.stack([t.long() for t in (
+                *torch.aminmax(dst), *torch.aminmax(src), (dst[1:] < dst[:-1]).any())]).tolist()
+            for name, lo, hi, rows in (("dst", lo_d, hi_d, num_nodes),
+                                       ("src", lo_s, hi_s, num_src)):
+                if lo < 0 or hi >= rows:
+                    raise ValueError(f"edges_by_row: {name} spans {lo}..{hi}, outside "
+                                     f"its {rows} rows")
+            if unsorted:
                 dst, order = torch.sort(dst, stable=True)
                 src = src.index_select(0, order)
-        counts = torch.bincount(dst, minlength=num_nodes)
-        indptr = torch.zeros(num_nodes + 1, dtype=torch.int64, device=dst.device)
-        torch.cumsum(counts, 0, out=indptr[1:])
-        return src.long().contiguous(), indptr
+        nodes = torch.arange(num_nodes + 1, dtype=dst.dtype, device=dst.device)
+        indptr = torch.searchsorted(dst.contiguous(), nodes)
+        return RowIndex(src.long().contiguous(), indptr, num_src)
+
+
+def csr_check(name: str, index: RowIndex, h: torch.Tensor, dtypes: Tuple[torch.dtype, ...],
+              rowwise: Tuple[torch.Tensor, ...] = (), others: Tuple[torch.Tensor, ...] = ()
+              ) -> bool:
+    """The one check of the CSR wrappers (:func:`segment_mean_bf16`,
+    :func:`csr_mean_f32`, ``attention.csr_gat``), on host integers alone:
+    ``h``'s dtype among ``dtypes``; forward only; one row of each ``rowwise``
+    tensor (a mean's ``deg``, the attention's ``er``) an index row; the
+    index's sources inside ``h``'s rows; and the device rule.  False where
+    every tensor is on the CPU (the wrapper runs its plain version), True
+    where all are on one CUDA device (it launches its kernel); else it
+    raises."""
+    if h.dtype not in dtypes:
+        raise TypeError(f"{name} takes {' or '.join(map(str, dtypes))}, not {h.dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (h, *others)):
+        raise ValueError(f"{name} is forward only")
+    for t in rowwise:
+        if t.dim() == 0 or t.shape[0] != index.num_rows:
+            raise ValueError(f"{name}: a tensor of shape {tuple(t.shape)} for an index "
+                             f"of {index.num_rows} rows")
+    if index.num_src > h.shape[0]:
+        raise ValueError(f"{name}: the index's sources reach row {index.num_src - 1}, "
+                         f"past the {h.shape[0]} rows of its input")
+    devices = {t.device for t in (h, index.src, index.indptr, *rowwise, *others)}
+    if {d.type for d in devices} == {"cpu"}:
+        return False
+    if len(devices) != 1 or h.device.type != "cuda":
+        raise ValueError(f"{name} takes tensors on one CUDA device or on the CPU, got "
+                         f"{', '.join(sorted(map(str, devices)))}")
+    return True
 
 
 def segment_mean_bf16_plain(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
@@ -152,36 +216,26 @@ def segment_mean_bf16_plain(h: torch.Tensor, src: torch.Tensor, indptr: torch.Te
     return (acc.float() / den.float()[:, None]).to(torch.bfloat16)
 
 
-def segment_mean_bf16(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
-                      deg: torch.Tensor) -> torch.Tensor:
-    """The kernel's wrapper: h (n_h, D) bf16, src (E,) int64 in row order,
-    indptr (N + 1,) int64, deg (N,) -> (N, D) bf16 (see
-    :func:`segment_mean_bf16_plain`).  Forward only."""
-    if h.dtype != torch.bfloat16:
-        raise TypeError(f"segment_mean_bf16 takes bfloat16, not {h.dtype}")
-    if {t.device.type for t in (h, src, indptr, deg)} == {"cpu"}:
-        return segment_mean_bf16_plain(h, src, indptr, deg)
-    if len({t.device for t in (h, src, indptr, deg)}) != 1 or h.device.type != "cuda":
-        raise ValueError(f"segment_mean_bf16 takes tensors on one CUDA device or on the "
-                         f"CPU, got {h.device}, {src.device}, {indptr.device}, {deg.device}")
-    n = indptr.shape[0] - 1
-    if src.dtype != torch.int64 or indptr.dtype != torch.int64 or src.dim() != 1 or n < 0:
-        raise TypeError("segment_mean_bf16: src and indptr are 1-D int64")
-    if deg.shape != (n,):
-        raise ValueError(f"segment_mean_bf16: deg of shape {tuple(deg.shape)}, expected ({n},)")
-    count("spmm.host_reads", 4 if src.numel() else 2)  # the int() reads below
-    if int(indptr[0]) != 0 or int(indptr[-1]) != src.shape[0] or (src.numel() and (
-            int(src.min()) < 0 or int(src.max()) >= h.shape[0])):
-        raise ValueError("segment_mean_bf16: indptr must span src, and src index rows of h")
-    h, src, indptr = h.contiguous(), src.contiguous(), indptr.contiguous()
+def segment_mean_bf16(h: torch.Tensor, index: RowIndex, deg: torch.Tensor) -> torch.Tensor:
+    """The kernel's wrapper: h (n_h, D) bf16, the row index of N rows, deg
+    (N,) -> (N, D) bf16 (see :func:`segment_mean_bf16_plain`).  Forward
+    only."""
+    if not csr_check("segment_mean_bf16", index, h, (torch.bfloat16,), (deg,)):
+        return segment_mean_bf16_plain(h, index.src, index.indptr, deg)
+    return _launch_mean("segment_mean_bf16", h, index, deg)
+
+
+def _launch_mean(name: str, h: torch.Tensor, index: RowIndex, deg: torch.Tensor) -> torch.Tensor:
+    """One launch of the mean kernel ``name`` on checked arguments."""
+    n, h = index.num_rows, h.contiguous()
     deg = deg.to(torch.float32).contiguous()
-    out = torch.empty((n, h.shape[1]), dtype=torch.bfloat16, device=h.device)
-    rc = _build.library("tower_kernels").segment_mean_bf16(
-        h.data_ptr(), src.data_ptr(), indptr.data_ptr(), deg.data_ptr(), n, h.shape[1],
-        out.data_ptr(), _build.current_stream(h.get_device()))
-    _build.check(rc, "segment_mean_bf16", "tower_kernels")
+    out = torch.empty((n, h.shape[1]), dtype=h.dtype, device=h.device)
+    rc = getattr(_build.library("tower_kernels"), name)(
+        h.data_ptr(), index.src.data_ptr(), index.indptr.data_ptr(), deg.data_ptr(), n,
+        h.shape[1], out.data_ptr(), _build.current_stream(h.get_device()))
+    _build.check(rc, name, "tower_kernels")
     if n:
-        _launches["segment_mean_bf16"] += 1
+        _launches[name] += 1
     return out
 
 
@@ -200,81 +254,77 @@ def csr_mean_f32_plain(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
     return acc / torch.clamp(deg.to(torch.float32), min=1.0)[:, None]
 
 
-def csr_mean_f32(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
-                 deg: torch.Tensor) -> torch.Tensor:
-    """The kernel's wrapper: h (n_h, D) f32, src (E,) int64 in row order,
-    indptr (N + 1,) int64, deg (N,) -> (N, D) f32 (see
-    :func:`csr_mean_f32_plain`).  Forward only.  Its bound checks read
-    one set of values into the host (``spmm.host_reads``)."""
-    if h.dtype != torch.float32:
-        raise TypeError(f"csr_mean_f32 takes float32, not {h.dtype}")
-    if h.requires_grad and torch.is_grad_enabled():
-        raise ValueError("csr_mean_f32 is forward only")
-    if {t.device.type for t in (h, src, indptr, deg)} == {"cpu"}:
-        return csr_mean_f32_plain(h, src, indptr, deg)
-    if len({t.device for t in (h, src, indptr, deg)}) != 1 or h.device.type != "cuda":
-        raise ValueError(f"csr_mean_f32 takes tensors on one CUDA device or on the CPU, "
-                         f"got {h.device}, {src.device}, {indptr.device}, {deg.device}")
-    n = indptr.shape[0] - 1
-    if src.dtype != torch.int64 or indptr.dtype != torch.int64 or src.dim() != 1 or n < 0:
-        raise TypeError("csr_mean_f32: src and indptr are 1-D int64")
-    if deg.shape != (n,):
-        raise ValueError(f"csr_mean_f32: deg of shape {tuple(deg.shape)}, expected ({n},)")
-    count("spmm.host_reads")
-    first, last, *lim = torch.stack([indptr[0], indptr[-1],
-                                     *(torch.aminmax(src) if src.numel() else ())]).tolist()
-    if first != 0 or last != src.shape[0] or (lim and (lim[0] < 0 or lim[1] >= h.shape[0])):
-        raise ValueError("csr_mean_f32: indptr must span src, and src index rows of h")
-    h, src, indptr = h.contiguous(), src.contiguous(), indptr.contiguous()
-    deg = deg.to(torch.float32).contiguous()
-    out = torch.empty((n, h.shape[1]), dtype=torch.float32, device=h.device)
-    rc = _build.library("tower_kernels").csr_mean_f32(
-        h.data_ptr(), src.data_ptr(), indptr.data_ptr(), deg.data_ptr(), n, h.shape[1],
-        out.data_ptr(), _build.current_stream(h.get_device()))
-    _build.check(rc, "csr_mean_f32", "tower_kernels")
-    if n:
-        _launches["csr_mean_f32"] += 1
-    return out
+def csr_mean_f32(h: torch.Tensor, index: RowIndex, deg: torch.Tensor) -> torch.Tensor:
+    """The kernel's wrapper: h (n_h, D) f32, the row index of N rows, deg
+    (N,) -> (N, D) f32 (see :func:`csr_mean_f32_plain`).  Forward only."""
+    if not csr_check("csr_mean_f32", index, h, (torch.float32,), (deg,)):
+        return csr_mean_f32_plain(h, index.src, index.indptr, deg)
+    return _launch_mean("csr_mean_f32", h, index, deg)
+
+
+@dataclass
+class FullGraph:
+    """The full graph's edges as a trainer keeps them for its life: the COO
+    ``src`` and ``dst`` (int64, on the device), the in-degrees ``deg`` (None:
+    counted from the edges), ``num_nodes``, the edge ``chunk`` of the
+    gradient path, and the row index, built by :meth:`index` the first time
+    it is asked for and kept."""
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    num_nodes: int
+    deg: Optional[torch.Tensor] = None
+    chunk: int = SPMM_CHUNK
+    _index: Optional[RowIndex] = field(default=None, repr=False)
+
+    def index(self) -> RowIndex:
+        if self._index is None:
+            self._index = edges_by_row(self.src, self.dst, self.num_nodes)
+        return self._index
+
+    def mean(self, h: torch.Tensor) -> torch.Tensor:
+        """Mean aggregation of ``h`` over every in-edge: sum / in-degree.
+
+        Where a bf16 or f32 ``h`` needs no gradient the mean walks the row
+        index, whatever ``chunk``:
+
+        - a bf16 ``h`` gives the JAX package's bf16 result bit for bit: each
+          row's sum in edge order with a bf16 rounding after every add
+          (:func:`segment_mean_bf16`; the reference's chunks keep that
+          order), divided by the degree cast to bf16, counted as a bf16 sum
+          of ones (so at most 256) where none is given;
+        - an f32 ``h`` sums each row in edge order in f32
+          (:func:`csr_mean_f32`) and divides by the degree, the full count
+          where none is given.
+
+        An f32 ``h`` that needs its gradient takes the chunked scatter, with
+        the transposed sum as its backward; a bf16 one raises (train
+        full-graph in f32)."""
+        grad = h.requires_grad and torch.is_grad_enabled()
+        if h.dtype == torch.bfloat16 and grad:
+            raise ValueError("the bf16 spmm_mean is forward only; train full-graph in f32")
+        deg = self.deg
+        if h.dtype in (torch.bfloat16, torch.float32) and not grad:
+            index = self.index()
+            if deg is None:
+                deg = index.indptr.diff()
+                if h.dtype == torch.bfloat16:
+                    deg = torch.clamp(deg, max=BF16_COUNT_MAX)
+            if h.dtype == torch.float32:
+                return csr_mean_f32(h, index, deg)
+            return segment_mean_bf16(h, index, deg)
+        s = spmm_sum_chunked(h, self.src, self.dst, self.num_nodes, chunk=self.chunk)
+        if deg is None:
+            deg = torch.bincount(self.dst, minlength=self.num_nodes)
+        return s / torch.clamp(deg.to(h.dtype), min=1.0)[:, None]
 
 
 def spmm_mean(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
               num_nodes: int, in_deg: Optional[torch.Tensor] = None,
-              chunk: int = SPMM_CHUNK,
-              rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
-    """Mean aggregation: sum / in-degree (degree from dst if not given).
-
-    Where a bf16 or f32 ``h`` needs no gradient the mean walks the row
-    index ``rows``, :func:`edges_by_row` of the same edges (built here
-    where none is given), whatever ``chunk``:
-
-    - a bf16 ``h`` gives the JAX package's bf16 result bit for bit: each
-      row's sum in edge order with a bf16 rounding after every add
-      (:func:`segment_mean_bf16`; the reference's chunks keep that order),
-      divided by the degree cast to bf16, counted as a bf16 sum of ones
-      (so at most 256) where none is given;
-    - an f32 ``h`` sums each row in edge order in f32
-      (:func:`csr_mean_f32`) and divides by the degree, the full count
-      where none is given.
-
-    An f32 ``h`` that needs its gradient takes the chunked scatter, with
-    the transposed sum as its backward; a bf16 one raises (train
-    full-graph in f32)."""
-    if h.dtype == torch.bfloat16 and h.requires_grad and torch.is_grad_enabled():
-        raise ValueError("the bf16 spmm_mean is forward only; train full-graph in f32")
-    if h.dtype in (torch.bfloat16, torch.float32) and not (
-            h.requires_grad and torch.is_grad_enabled()):
-        src, indptr = edges_by_row(src, dst, num_nodes) if rows is None else rows
-        if in_deg is None:
-            in_deg = indptr.diff()
-            if h.dtype == torch.bfloat16:
-                in_deg = torch.clamp(in_deg, max=BF16_COUNT_MAX)
-        if h.dtype == torch.float32:
-            return csr_mean_f32(h, src, indptr, in_deg)
-        return segment_mean_bf16(h, src, indptr, in_deg)
-    s = spmm_sum_chunked(h, src, dst, num_nodes, chunk=chunk)
-    if in_deg is None:
-        in_deg = torch.bincount(dst, minlength=num_nodes)
-    return s / torch.clamp(in_deg.to(h.dtype), min=1.0)[:, None]
+              chunk: int = SPMM_CHUNK) -> torch.Tensor:
+    """Mean aggregation: sum / in-degree (degree from dst if not given), as
+    :meth:`FullGraph.mean` of these edges takes it."""
+    return FullGraph(src, dst, num_nodes, in_deg, chunk).mean(h)
 
 
 def gcn_norm_spmm(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,

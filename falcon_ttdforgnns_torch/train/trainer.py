@@ -18,9 +18,10 @@ mixed epoch's are S loader batches (JAX ``_grouped_batches``), the last
 ragged group filled with the epoch's first batches again, so that an epoch
 of nb batches is ceil(nb / S) * S steps, as in JAX.
 Evaluation is full-graph propagation, its SpMM chosen by ``--spmm``:
-``xla`` the chunked ``index_add_``, ``pallas`` the tiled kernel (B7),
-``blocked`` the window-gather kernel (B9); ``infer_full`` is the
-layer-wise form of it; ``--eval-sampled`` evaluates by the sampled fan-out
+``xla`` the CSR means over the row index of the trainer's one
+:class:`ops.segment.FullGraph`, ``pallas`` the tiled kernel (B7),
+``blocked`` the window-gather kernel (B9); ``infer_full`` returns the
+logits it scores; ``--eval-sampled`` evaluates by the sampled fan-out
 forward instead (:meth:`SageTrainer.evaluate_sampled`).  The reference takes its XLA route for ``pallas``
 off a TPU; the port runs B7 on the card and its plain version on the CPU,
 so the CPU tests reach the routing.
@@ -120,7 +121,7 @@ from ..graph.sampler import NeighborLoader, sample_block
 from ..models.gat_ns import GATNS
 from ..models.sage import SAGE, collect_level_ids
 from ..nn.tt_embedding import AccessCountingEmbedding
-from ..ops.segment import edges_by_row
+from ..ops.segment import FullGraph
 from ..ops.spmm_blocked import (build_window_tiles, chunk_tiles_host,
                                 default_blocked_tiling, spmm_sum_blocked_dev)
 from ..ops.spmm_tiled import auto_tile_edges, build_spmm_tiles_uniform, spmm_sum_tiled_uniform
@@ -427,7 +428,7 @@ class SageTrainer:
         if cfg.mode == "puregpu" and cfg.cache_size > 0 and logger:
             logger.warning("--mode puregpu samples on the device; host LFU counts are "
                            "unavailable, so the cache populates from the counts of the step")
-        self._eval_args = self._labels = None
+        self._graph = self._labels = None
         if self.node_mesh is not None and not cfg.use_sample:
             self._ensure_nshard_layout(self.node_mesh.n_node)  # JAX places it here
         self._spmms: Dict[str, FullGraphSpmm] = {}
@@ -605,9 +606,8 @@ class SageTrainer:
         rows of ``seeds`` (a device tensor; their labels are gathered on the
         device), and the routed update."""
         with span("trainer.step"):
-            src, dst, deg, labels, *_ = self._eval_graph()
-            logits = self.model.forward_full_graph(src, dst, deg, train=True,
-                                                   chunk=self.cfg.edge_chunk,
+            labels = self._eval_labels()[0]
+            logits = self.model.forward_full_graph(self._full_graph(), train=True,
                                                    generator=self.dropout_gen)
             return self._routed_update(logits.index_select(0, seeds),
                                        labels.index_select(0, seeds))
@@ -805,15 +805,17 @@ class SageTrainer:
                 ds.labels.astype(np.int64), ds.train_idx, ds.val_idx, ds.test_idx))
         return self._labels
 
-    def _eval_graph(self):
-        """The COO graph and degrees, then :meth:`_eval_labels`, on the
-        device (moved once)."""
-        if self._eval_args is None:
-            src, dst = self.ds.graph.to_coo()
-            self._eval_args = tuple(self._tensor(a) for a in (
-                src.astype(np.int64), dst.astype(np.int64),
-                self.ds.graph.degrees.astype(np.float32))) + self._eval_labels()
-        return self._eval_args
+    def _full_graph(self) -> FullGraph:
+        """The COO graph and degrees on the device, moved once, with the
+        row index that its first forward without gradient builds."""
+        if self._graph is None:
+            g = self.ds.graph
+            src, dst = g.to_coo()
+            self._graph = FullGraph(self._tensor(src.astype(np.int64)),
+                                    self._tensor(dst.astype(np.int64)), g.num_nodes,
+                                    self._tensor(g.degrees.astype(np.float32)),
+                                    self.cfg.edge_chunk)
+        return self._graph
 
     def _ensure_nshard_layout(self, n_ring: int) -> NodeSharding:
         """Build (once) the ragged node-sharded layout of the graph for a
@@ -913,14 +915,7 @@ class SageTrainer:
                 return self.evaluate_sampled()
             if self.node_mesh is not None:
                 return self._accuracies(self.infer_full_sharded())
-            src, dst, deg, *_ = self._eval_graph()
-            if self.cfg.spmm == "xla":
-                logits = self.model.forward_full_graph(src, dst, deg, train=False,
-                                                       chunk=self.cfg.edge_chunk)
-            else:
-                logits = self._layerwise(self.model.materialize_features(torch.arange(
-                    self.ds.num_nodes, dtype=torch.int32, device=self.device)), self.cfg.spmm)
-            return self._accuracies(logits)
+            return self._accuracies(self._full_logits(self.cfg.spmm))
 
     def _accuracies(self, logits: torch.Tensor) -> Dict[str, float]:
         """The three splits' accuracies of every node's ``logits``."""
@@ -933,19 +928,15 @@ class SageTrainer:
 
     @torch.no_grad()
     def infer_full(self) -> torch.Tensor:
-        """Layer-wise full-neighbour inference over all nodes: the features
-        materialised ``inference_chunk`` rows at a time, then each conv over
-        the full graph, through the blocked kernel under ``--spmm blocked``
-        and the chunked ``index_add_`` otherwise (as the reference), or
-        under ``--node-shard`` over ranks :meth:`infer_full_sharded`.
-        Returns the (N, num_classes) logits on the device."""
+        """Layer-wise full-neighbour inference over all nodes: the logits
+        that :meth:`evaluate` scores, through the blocked kernel under
+        ``--spmm blocked`` and the ``xla`` route otherwise (as the
+        reference), or under ``--node-shard`` over ranks
+        :meth:`infer_full_sharded`.  Returns the (N, num_classes) logits on
+        the device."""
         if self.node_mesh is not None:
             return self.infer_full_sharded()
-        cfg, n = self.cfg, self.ds.num_nodes
-        h = torch.cat([self.model.materialize_features(
-            torch.arange(s, min(s + cfg.inference_chunk, n), dtype=torch.int32,
-                         device=self.device)) for s in range(0, n, cfg.inference_chunk)])
-        return self._layerwise(h, "blocked" if cfg.spmm == "blocked" else "xla")
+        return self._full_logits("blocked" if self.cfg.spmm == "blocked" else "xla")
 
     @torch.no_grad()
     def infer_full_sharded(self) -> torch.Tensor:
@@ -961,22 +952,20 @@ class SageTrainer:
                        for s in range(0, ids.shape[0], step)])
         return ns.gather_rows(ns.propagate(h, self.model.apply_conv, self.cfg.num_layers))
 
-    def _layerwise(self, h: torch.Tensor, route: str) -> torch.Tensor:
-        """Every conv layer over the full graph from the features ``h``: the
-        mean aggregation through ``route``'s SpMM, then the conv.  The
-        ``xla`` route builds the edges' row index once for every layer
-        where no gradient is taken."""
-        src, dst, deg, *_ = self._eval_graph()
+    def _full_logits(self, route: str) -> torch.Tensor:
+        """Every node's logits by full-graph propagation through ``route``:
+        ``xla`` is the model's full-graph forward over the graph's row
+        index, built once a trainer before the layers' spans; ``pallas`` and
+        ``blocked`` aggregate each layer through their tiled SpMM and take
+        the model's ``apply_conv``."""
+        graph = self._full_graph()
         if route == "xla":
-            with span("spmm.aggregate"):
-                rows = (None if torch.is_grad_enabled()
-                        else edges_by_row(src, dst, self.ds.num_nodes))
-            for li in range(self.cfg.num_layers):
-                h = self.model.forward_full(h, src, dst, deg, self.ds.num_nodes, li,
-                                            chunk=self.cfg.edge_chunk, rows=rows)
-            return h
+            graph.index()
+            return self.model.forward_full_graph(graph)
         spmm = self.full_graph_spmm(route)
-        degc = torch.clamp(deg, min=1.0)[:, None]
+        degc = torch.clamp(graph.deg, min=1.0)[:, None]
+        h = self.model.materialize_features(torch.arange(
+            self.ds.num_nodes, dtype=torch.int32, device=self.device))
         for li in range(self.cfg.num_layers):
             with span("spmm.aggregate"):
                 agg = spmm(h) / degc

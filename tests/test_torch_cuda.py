@@ -1195,11 +1195,11 @@ def test_segment_mean_bf16_kernel_bit_identical(cuda, d):
     dst = torch.tensor(np.repeat(np.arange(n), deg), device=cuda)
     src = torch.tensor(rng.integers(0, n, int(deg.sum())), device=cuda)
     degf = torch.tensor(deg.astype(np.float32), device=cuda)
-    s, indptr = segment.edges_by_row(src, dst, n)
+    index = segment.edges_by_row(src, dst, n)
     for scale in (1.0, 3e4):
         h = (torch.randn(n, d, device=cuda) * scale).to(torch.bfloat16)
-        got = segment.segment_mean_bf16(h, s, indptr, degf)
-        want = segment.segment_mean_bf16_plain(h, s, indptr, degf)
+        got = segment.segment_mean_bf16(h, index, degf)
+        want = segment.segment_mean_bf16_plain(h, index.src, index.indptr, degf)
         assert torch.equal(got.view(torch.int16), want.view(torch.int16))
     segment.reset_launch_counts()
     with torch.no_grad():
@@ -1223,8 +1223,8 @@ def test_csr_mean_f32_kernel_bit_identical(cuda, d):
     deg[3], deg[n - 1] = 700, 12
     dst = torch.tensor(np.repeat(np.arange(n), deg), device=cuda)
     src = torch.tensor(rng.integers(0, n, int(deg.sum())), device=cuda)
-    s, indptr = segment.edges_by_row(src, dst, n)
-    counts = indptr.diff()
+    index = segment.edges_by_row(src, dst, n)
+    counts = index.indptr.diff()
     given = torch.tensor(deg.astype(np.float32), device=cuda)
     vals = torch.tensor(rng.normal(size=(n, d)).astype(np.float32), device=cuda)
     buf = torch.empty(n * d + 1, device=cuda)
@@ -1232,9 +1232,10 @@ def test_csr_mean_f32_kernel_bit_identical(cuda, d):
     for h in (vals, buf[1:].view(n, d)):
         for degf in (given, counts):
             segment.reset_launch_counts()
-            got = segment.csr_mean_f32(h, s, indptr, degf)
+            got = segment.csr_mean_f32(h, index, degf)
             assert segment.launch_counts()["csr_mean_f32"] == 1
-            want = segment.csr_mean_f32_plain(h.cpu(), s.cpu(), indptr.cpu(), degf.cpu())
+            want = segment.csr_mean_f32_plain(h.cpu(), index.src.cpu(), index.indptr.cpu(),
+                                              degf.cpu())
             assert got.dtype == torch.float32
             assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
     chunked = segment.spmm_sum_chunked(vals, src, dst, n) / given.clamp(min=1.0)[:, None]
@@ -1244,8 +1245,9 @@ def test_csr_mean_f32_kernel_bit_identical(cuda, d):
 def test_bf16_evaluate_takes_one_row_index_and_the_csr_means(cuda):
     """A --bf16 evaluate() of three layers on the card: layer 1's f32 mean
     through csr_mean_f32, layers 2 and 3 through segment_mean_bf16, one
-    spmm.rows span a call inside spmm.aggregate; the same accuracies in
-    both calls (no atomics left in the means); and a --full-neighbor step's
+    spmm.rows span in all, in the first call before its layers' spans; the
+    same accuracies in both calls (no atomics left in the means); and a
+    --full-neighbor step's
     f32 means keep the chunked scatter (no csr_mean_f32, no row index)."""
     from falcon_ttdforgnns_torch.graph import hard_synthetic_dataset
     from falcon_ttdforgnns_torch.ops import segment
@@ -1264,8 +1266,8 @@ def test_bf16_evaluate_takes_one_row_index_and_the_csr_means(cuda):
             accs.append(gpu.evaluate())
             assert segment.launch_counts() == {"segment_mean_bf16": 2, "csr_mean_f32": 1}
             stats = metrics.span_stats()
-            assert stats["spmm.rows"]["calls"] == call
-            assert stats["spmm.rows"]["parents"] == ["spmm.aggregate"]
+            assert stats["spmm.rows"]["calls"] == 1
+            assert stats["spmm.rows"]["parents"] == ["trainer.eval"]
             assert stats["spmm.aggregate"]["calls"] == 3 * call
         metrics.reset_spans()
         step = SageTrainer(ds, TrainConfig(use_sample=False, **kw), device="cuda")
@@ -1278,6 +1280,33 @@ def test_bf16_evaluate_takes_one_row_index_and_the_csr_means(cuda):
         metrics.set_tracing(False)
         metrics.reset_spans()
     assert accs[0] == accs[1] and all(0.0 <= a <= 1.0 for a in accs[0].values())
+
+
+@pytest.mark.parametrize("model", ["sage", "gat"])
+def test_a_second_evaluate_reads_nothing_back_for_its_means(cuda, model):
+    """The --bf16 evaluate() of both eval cells' models on the card: the
+    first call builds the row index with its one host read; the second adds
+    0 to spmm.host_reads, since the CSR wrappers check the kept index on
+    host integers."""
+    from falcon_ttdforgnns_torch.graph import hard_synthetic_dataset
+    from falcon_ttdforgnns_torch.train import SageTrainer, TrainConfig
+    from falcon_ttdforgnns_torch.utils import metrics
+    ds = hard_synthetic_dataset(num_nodes=2000, avg_degree=5, num_classes=4, feat_dim=16,
+                                seed=0)
+    kw = dict(model=model, batch_size=64, fanouts=(3, 3, 3), hidden_dim=16, num_layers=3,
+              tt_ranks=(4, 4), bf16=True, sparse=True, mode="puregpu")
+    tr = SageTrainer(ds, TrainConfig(**kw), device="cuda")
+    metrics.reset_spans()
+    metrics.set_tracing(True)
+    try:
+        reads = []
+        for _ in range(2):
+            tr.evaluate()
+            reads.append(metrics.span_stats()["spmm.host_reads"]["count"])
+    finally:
+        metrics.set_tracing(False)
+        metrics.reset_spans()
+    assert reads == [1, 1]
 
 
 # ----------------------------------------------------------------- --dist

@@ -21,6 +21,7 @@ import torch
 from falcon_ttdforgnns_torch.graph import hard_synthetic_dataset
 from falcon_ttdforgnns_torch.ops import attention
 from falcon_ttdforgnns_torch.ops.attention import csr_gat, csr_gat_plain
+from falcon_ttdforgnns_torch.ops.segment import edges_by_row
 from falcon_ttdforgnns_torch.train import SageTrainer, TrainConfig
 
 pytestmark = pytest.mark.cuda
@@ -38,13 +39,12 @@ def cuda():
 def graph(n: int, seed: int):
     """Row 0 without in-edges, row 1 of degree 1, row 2 of degree 40, row 3
     of degree 300, the rest 0-60 (a row's edges run past several of the
-    kernel's 4-edge loads and its 32 lanes); (src, indptr) int64."""
+    kernel's 4-edge loads and its 32 lanes); (src, dst) int64, dst sorted."""
     rng = np.random.default_rng(seed)
     deg = rng.integers(0, 61, n)
     deg[:4] = (0, 1, 40, 300)
-    indptr = np.concatenate([[0], np.cumsum(deg)])
-    return (torch.as_tensor(rng.integers(0, n, int(indptr[-1]))),
-            torch.as_tensor(indptr))
+    return (torch.as_tensor(rng.integers(0, n, int(deg.sum()))),
+            torch.as_tensor(np.repeat(np.arange(n), deg)))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -52,14 +52,16 @@ def graph(n: int, seed: int):
                                            (2, 16, True), (2, 256, False)])
 def test_csr_gat_matches_plain(cuda, dtype, heads, cp, mean):
     n = 3000
-    src, indptr = graph(n, heads * cp)
+    edges = graph(n, heads * cp)
+    index = edges_by_row(*edges, n)
     gen = torch.Generator().manual_seed(cp)
     x = torch.randn(n + 5, heads * cp, generator=gen).to(dtype)  # rows past n: sources only
     el = torch.randn(n + 5, heads, generator=gen) * 2
     er = torch.randn(n, heads, generator=gen) * 2
-    want = csr_gat_plain(x.float(), el, er, src, indptr, heads, mean)
+    want = csr_gat_plain(x.float(), el, er, index.src, index.indptr, heads, mean)
     attention.reset_launch_counts()
-    got = csr_gat(*(t.to(cuda) for t in (x, el, er, src, indptr)), heads, mean).cpu()
+    got = csr_gat(*(t.to(cuda) for t in (x, el, er)),
+                  edges_by_row(*(t.to(cuda) for t in edges), n), heads, mean).cpu()
     name = "csr_gat_bf16" if dtype == torch.bfloat16 else "csr_gat_f32"
     assert attention.launch_counts()[name] == 1
     assert got.dtype == dtype and got.shape == want.shape
@@ -73,16 +75,17 @@ def test_csr_gat_matches_plain(cuda, dtype, heads, cp, mean):
 
 
 def test_csr_gat_refuses_what_it_cannot_take(cuda):
-    src, indptr = graph(100, 0)
+    """A head the kernel cannot load, and a source past the rows, which the
+    index refuses when it is built on the card, before any kernel runs."""
+    src, dst = (t.to(cuda) for t in graph(100, 0))
     x = torch.randn(100, 4 * 47, device=cuda).bfloat16()
     el, er = torch.randn(100, 4, device=cuda), torch.randn(100, 4, device=cuda)
     with pytest.raises(ValueError, match="multiple"):  # a head of 47 values: pad it
-        csr_gat(x, el, er, src.to(cuda), indptr.to(cuda), 4, True)
+        csr_gat(x, el, er, edges_by_row(src, dst, 100), 4, True)
     bad = src.clone()
     bad[0] = 100
-    with pytest.raises(ValueError, match="index rows"):
-        csr_gat(torch.randn(100, 64, device=cuda), el, er, bad.to(cuda), indptr.to(cuda), 4,
-                False)
+    with pytest.raises(ValueError, match="src spans"):
+        edges_by_row(bad, dst, 100)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -105,10 +108,9 @@ def test_gat_evaluate_and_step_on_the_card_match_the_cpu(cuda, bf16):
             q.copy_(p)
     logits = {}
     for d, tr in trs.items():
-        src, dst, deg, *_ = tr._eval_graph()
         attention.reset_launch_counts()
         with torch.no_grad():
-            logits[d] = tr.model.forward_full_graph(src, dst, deg).cpu()
+            logits[d] = tr.model.forward_full_graph(tr._full_graph()).cpu()
     assert attention.launch_counts()["csr_gat_bf16" if bf16 else "csr_gat_f32"] == 3
     gap = float((logits["cuda"] - logits["cpu"]).norm() / logits["cpu"].norm())
     assert gap <= (2e-2 if bf16 else 1e-4), gap

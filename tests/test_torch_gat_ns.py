@@ -28,6 +28,7 @@ from falcon_ttdforgnns_torch.graph import hard_synthetic_dataset
 from falcon_ttdforgnns_torch.models import gat_ns
 from falcon_ttdforgnns_torch.models.gat_ns import GATNS
 from falcon_ttdforgnns_torch.ops.attention import csr_gat, csr_gat_plain
+from falcon_ttdforgnns_torch.ops.segment import edges_by_row
 from falcon_ttdforgnns_torch.train import SageTrainer, TrainConfig
 from falcon_ttdforgnns_torch.train.optim import ADAM_B1
 from gnnbench.reference import gat as ref
@@ -84,9 +85,8 @@ def test_full_graph_logits_match_the_reference(ds, bf16, hidden, limits):
     padded to 8 in the projection and dropped after the attention."""
     tr, conf, weights = trainer_of(ds, bf16=bf16, hidden=hidden)
     assert isinstance(tr.model, GATNS)
-    src, dst, deg, *_ = tr._eval_graph()
     with torch.no_grad():
-        got = tr.model.forward_full_graph(src, dst, deg)
+        got = tr.model.forward_full_graph(tr._full_graph())
     g = ds.graph
     want = ref.full_graph_logits(conf, weights, torch.as_tensor(g.indptr),
                                  torch.as_tensor(g.indices))
@@ -97,9 +97,8 @@ def test_full_graph_logits_match_the_reference(ds, bf16, hidden, limits):
     pred, labels = got.argmax(-1), torch.as_tensor(ds.labels)
     assert accs["val_acc"] == pytest.approx(
         float((pred[ds.val_idx] == labels[ds.val_idx]).float().mean()))
-    # the layer-wise inference of --save-pred takes the same layers
-    inferred = tr.infer_full()
-    assert gaps(inferred, got)[0] <= (1e-6 if not bf16 else 1e-2)
+    # the layer-wise inference of --save-pred returns the logits evaluated
+    assert torch.equal(tr.infer_full(), got)
 
 
 def keep_masks(masks: list):
@@ -176,22 +175,23 @@ def csr_case(heads, cp, seed=0):
     """A graph of 60 rows: row 0 without in-edges, row 1 of degree 1,
     row 2 of degree 40 (past a warp's 32 lanes and the kernel's 4 edges in
     flight), the rest 0-6; x (60, heads * cp), el and er with scores of a
-    few units."""
+    few units, and the edges' row index."""
     rng = np.random.default_rng(seed)
     deg = rng.integers(0, 7, 60)
     deg[:3] = (0, 1, 40)
-    indptr = torch.as_tensor(np.concatenate([[0], np.cumsum(deg)]))
+    dst = torch.as_tensor(np.repeat(np.arange(60), deg))
     src = torch.as_tensor(rng.integers(0, 60, int(deg.sum())))
     x = torch.as_tensor(rng.normal(size=(60, heads * cp)), dtype=torch.float32)
     el = torch.as_tensor(rng.normal(size=(60, heads)) * 2, dtype=torch.float32)
     er = torch.as_tensor(rng.normal(size=(60, heads)) * 2, dtype=torch.float32)
-    return x, el, er, src, indptr
+    return x, el, er, edges_by_row(src, dst, 60)
 
 
 @pytest.mark.parametrize("mean", [False, True], ids=["heads side by side", "head mean"])
 def test_csr_attention_plain_version_against_the_reference(mean):
-    x, el, er, src, indptr = csr_case(HEADS, 6)
-    got = csr_gat(x, el, er, src, indptr, HEADS, mean)
+    x, el, er, index = csr_case(HEADS, 6)
+    src, indptr = index.src, index.indptr
+    got = csr_gat(x, el, er, index, HEADS, mean)
     assert torch.equal(got, csr_gat_plain(x, el, er, src, indptr, HEADS, mean))
     att = ref.attend_rows(x.reshape(60, HEADS, 6), el, er, indptr, src, edge_chunk=16)
     want = att.mean(1) if mean else att.reshape(60, -1)
@@ -205,15 +205,15 @@ def test_csr_attention_plain_version_against_the_reference(mean):
 
 
 def test_csr_attention_plain_version_bf16_and_checks():
-    x, el, er, src, indptr = csr_case(2, 8, seed=1)
-    got = csr_gat(x.bfloat16(), el, er, src, indptr, 2, False)
+    x, el, er, index = csr_case(2, 8, seed=1)
+    got = csr_gat(x.bfloat16(), el, er, index, 2, False)
     assert got.dtype == torch.bfloat16
-    want = csr_gat_plain(x.bfloat16().float(), el, er, src, indptr, 2, False)
+    want = csr_gat_plain(x.bfloat16().float(), el, er, index.src, index.indptr, 2, False)
     assert torch.equal(got, want.bfloat16())
     with pytest.raises(ValueError, match="forward only"):
-        csr_gat(x.requires_grad_(True), el, er, src, indptr, 2, False)
+        csr_gat(x.requires_grad_(True), el, er, index, 2, False)
     with pytest.raises(ValueError):
-        csr_gat(x.detach(), el[:, :1], er, src, indptr, 2, False)
+        csr_gat(x.detach(), el[:, :1], er, index, 2, False)
 
 
 @pytest.mark.parametrize("kw", [

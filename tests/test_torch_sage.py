@@ -19,6 +19,7 @@ from falcon_ttdforgnns_tpu.graph.csr import hard_synthetic_dataset
 from falcon_ttdforgnns_torch.convert import params_from_jax
 from falcon_ttdforgnns_torch.models.sage import SAGE, collect_level_ids, dropout
 from falcon_ttdforgnns_torch.nn.layers import SAGEConv, lecun_normal_
+from falcon_ttdforgnns_torch.ops.segment import FullGraph
 
 RTOL = 1e-5  # f32 matmuls in both frameworks, summed in another order
 
@@ -103,9 +104,9 @@ def test_forward_full_graph_matches(models):
     want = jax_model.apply(variables, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(deg),
                            False, chunk=4096, method=JaxSAGE.forward_full_graph)
     with torch.no_grad():
-        got = ours.forward_full_graph(torch.tensor(src.astype(np.int64)),
-                                      torch.tensor(dst.astype(np.int64)),
-                                      torch.tensor(deg), chunk=4096)
+        got = ours.forward_full_graph(FullGraph(torch.tensor(src.astype(np.int64)),
+                                                torch.tensor(dst.astype(np.int64)), 2000,
+                                                torch.tensor(deg), 4096))
     assert got.shape == (2000, 5)
     assert_close(got, want)
 
@@ -185,9 +186,9 @@ def test_bf16_forwards_match_flax(flags):
     want = jax_model.apply(variables, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(deg),
                            False, chunk=4096, method=JaxSAGE.forward_full_graph)
     with torch.no_grad():
-        got = ours.forward_full_graph(torch.tensor(src.astype(np.int64)),
-                                      torch.tensor(dst.astype(np.int64)),
-                                      torch.tensor(deg), chunk=4096)
+        got = ours.forward_full_graph(FullGraph(torch.tensor(src.astype(np.int64)),
+                                                torch.tensor(dst.astype(np.int64)), 2000,
+                                                torch.tensor(deg), 4096))
     assert str(want.dtype) == str(got.dtype).split(".")[-1]
     assert_close(got.float(), np.asarray(want.astype(jnp.float32)), BF16_RTOL)
 

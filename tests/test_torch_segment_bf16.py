@@ -6,9 +6,10 @@ its edge chunks, then divides by the degree cast to bf16 (a bf16 count of
 ones, which stops at 256, where none is given).  Cases: E past a small
 ``chunk`` in both packages, rows across a chunk boundary and the last row,
 in-degrees over 256, zero-degree rows, unsorted edges; then the bf16
-``SAGE.forward_full_graph`` and ``forward_full`` against JAX's, bit for bit
-where the convs are exact (identity weights) and within bf16 tolerance
-with random weights.
+``SAGE.forward_full_graph`` and one layer of ``spmm_mean`` and
+``apply_conv`` against JAX's ``forward_full_graph`` and ``forward_full``,
+bit for bit where the convs are exact (identity weights) and within bf16
+tolerance with random weights.
 """
 
 import jax
@@ -132,19 +133,19 @@ def test_the_bf16_mean_is_forward_only():
 
 def test_wrapper_runs_the_plain_version_on_the_cpu_only():
     src, dst, deg = graph()
-    s, indptr = segment.edges_by_row(torch.tensor(src.astype(np.int64)),
-                                     torch.tensor(dst.astype(np.int64)), N)
-    assert torch.equal(indptr.diff(), torch.tensor(deg.astype(np.int64)))
-    h = torch.tensor(h_of(10, 1.0)).to(torch.bfloat16)
+    index = segment.edges_by_row(torch.tensor(src.astype(np.int64)),
+                                 torch.tensor(dst.astype(np.int64)), N)
+    assert torch.equal(index.indptr.diff(), torch.tensor(deg.astype(np.int64)))
+    h, d = torch.tensor(h_of(10, 1.0)).to(torch.bfloat16), torch.tensor(deg)
     segment.reset_launch_counts()
-    assert torch.equal(segment.segment_mean_bf16(h, s, indptr, torch.tensor(deg)),
-                       segment.segment_mean_bf16_plain(h, s, indptr, torch.tensor(deg)))
+    assert torch.equal(segment.segment_mean_bf16(h, index, d),
+                       segment.segment_mean_bf16_plain(h, index.src, index.indptr, d))
     assert segment.launch_counts() == {"segment_mean_bf16": 0, "csr_mean_f32": 0}
     with pytest.raises(ValueError):
-        segment.segment_mean_bf16(h.to("meta"), s.to("meta"), indptr.to("meta"),
-                                  torch.tensor(deg).to("meta"))
+        meta = segment.RowIndex(index.src.to("meta"), index.indptr.to("meta"), N)
+        segment.segment_mean_bf16(h.to("meta"), meta, d.to("meta"))
     with pytest.raises(TypeError):
-        segment.segment_mean_bf16(h.float(), s, indptr, torch.tensor(deg))
+        segment.segment_mean_bf16(h.float(), index, d)
 
 
 @pytest.fixture(scope="module")
@@ -179,10 +180,10 @@ def identity(params, scale_self: float = 0.0):
 
 @pytest.mark.parametrize("convs", ["identity", "random"])
 def test_sage_full_graph_forwards_under_bf16(sage_pair, convs):
-    """forward_full_graph (evaluate) and forward_full (layer-wise inference,
-    from bf16 features) against JAX's: bit for bit with identity convs,
-    within bf16 tolerance (the convs' products round in another order) with
-    random ones."""
+    """forward_full_graph (evaluate) against JAX's, and JAX's forward_full
+    (one layer from bf16 features) against spmm_mean then apply_conv, which
+    is what it is: bit for bit with identity convs, within bf16 tolerance
+    (the convs' products round in another order) with random ones."""
     jm, kw, params, (src, dst, deg) = sage_pair
     p = identity(params) if convs == "identity" else params
     ours = SAGE(dropout=0.0, **kw)
@@ -194,9 +195,10 @@ def test_sage_full_graph_forwards_under_bf16(sage_pair, convs):
     want_l = jm.apply({"params": p}, h, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(deg),
                       N, 0, chunk=256, method=JaxSAGE.forward_full)
     with torch.no_grad():
-        got = ours.forward_full_graph(s64, d64, torch.tensor(deg), chunk=256)
-        got_l = ours.forward_full(torch.tensor(h_of(16, 1.0, seed=6)).to(torch.bfloat16),
-                                  s64, d64, torch.tensor(deg), N, 0, chunk=256)
+        got = ours.forward_full_graph(segment.FullGraph(s64, d64, N, torch.tensor(deg), 256))
+        h_l = torch.tensor(h_of(16, 1.0, seed=6)).to(torch.bfloat16)
+        got_l = ours.apply_conv(h_l, spmm_mean(h_l, s64, d64, N, torch.tensor(deg), chunk=256),
+                                0)
     assert got.dtype == got_l.dtype == torch.bfloat16
     if convs == "identity":
         np.testing.assert_array_equal(bits(got), bits(want))

@@ -8,9 +8,10 @@ chunked ``index_add_`` path it replaced bit for bit, and JAX's f32 mean within
 1e-6 (XLA's scatter may add in another order).  Cases: E past a small
 ``chunk`` in JAX, rows of degree 0 and past 256, unsorted edges, a given or
 counted degree.  Then the paths around it: ``h`` that needs its gradient
-still takes ``ChunkedSpmm`` (its gradient against JAX's), a prebuilt row
-index gives the same bits as one built inside, and the full-graph forwards
-build the row index once a call, with tracing on.
+still takes ``ChunkedSpmm`` (its gradient against JAX's), a graph's kept
+row index gives the same bits as one built inside ``spmm_mean``, a
+malformed edge list is refused once, when its index is built, and a trainer
+builds its row index once for its life, with tracing on.
 """
 
 import dataclasses
@@ -98,12 +99,13 @@ def test_plain_version_adds_each_row_in_edge_order():
     acc = np.zeros((N, 300), np.float32)
     np.add.at(acc, dst, h[src])
     want = acc / np.maximum(deg, 1.0)[:, None]
-    s, indptr = segment.edges_by_row(torch.tensor(src), torch.tensor(dst), N)
-    got = segment.csr_mean_f32_plain(torch.tensor(h), s, indptr, torch.tensor(deg))
+    index = segment.edges_by_row(torch.tensor(src), torch.tensor(dst), N)
+    got = segment.csr_mean_f32_plain(torch.tensor(h), index.src, index.indptr,
+                                     torch.tensor(deg))
     np.testing.assert_array_equal(got.numpy(), want)
     empty = torch.tensor(deg) == 0
     assert not got[empty].view(torch.int32).any()  # +0, not -0
-    assert torch.equal(indptr.diff(), torch.tensor(deg).long())
+    assert torch.equal(index.indptr.diff(), torch.tensor(deg).long())
 
 
 def test_gradient_path_stays_chunked(monkeypatch):
@@ -129,31 +131,83 @@ def test_gradient_path_stays_chunked(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_prebuilt_rows_give_the_same_bits(dtype):
+    """A FullGraph's mean over its kept row index, twice, against
+    spmm_mean, which builds its own index of the same unsorted edges."""
     src, dst, deg = graph(7)
     perm = np.random.default_rng(8).permutation(src.shape[0])
     st, dt = torch.tensor(src[perm]), torch.tensor(dst[perm])
     h = torch.tensor(h_of(12, seed=9)).to(dtype)
-    rows = segment.edges_by_row(st, dt, N)
     for d in (torch.tensor(deg), None):
+        kept = segment.FullGraph(st, dt, N, d)
+        kept.index()
         inside = spmm_mean(h, st, dt, N, d)
-        given = spmm_mean(h, st, dt, N, d, rows=rows)
-        assert torch.equal(inside.view(torch.int16), given.view(torch.int16))
+        for _ in range(2):
+            assert torch.equal(inside.view(torch.int16), kept.mean(h).view(torch.int16))
 
 
 def test_wrapper_checks_and_runs_the_plain_version_on_the_cpu_only():
     src, dst, deg = graph()
-    s, indptr = segment.edges_by_row(torch.tensor(src), torch.tensor(dst), N)
+    index = segment.edges_by_row(torch.tensor(src), torch.tensor(dst), N)
     h, d = torch.tensor(h_of(10)), torch.tensor(deg)
     segment.reset_launch_counts()
-    assert torch.equal(segment.csr_mean_f32(h, s, indptr, d),
-                       segment.csr_mean_f32_plain(h, s, indptr, d))
+    assert torch.equal(segment.csr_mean_f32(h, index, d),
+                       segment.csr_mean_f32_plain(h, index.src, index.indptr, d))
     assert segment.launch_counts() == {"segment_mean_bf16": 0, "csr_mean_f32": 0}
     with pytest.raises(ValueError):
-        segment.csr_mean_f32(h.to("meta"), s.to("meta"), indptr.to("meta"), d.to("meta"))
+        meta = segment.RowIndex(index.src.to("meta"), index.indptr.to("meta"), N)
+        segment.csr_mean_f32(h.to("meta"), meta, d.to("meta"))
     with pytest.raises(TypeError):
-        segment.csr_mean_f32(h.to(torch.bfloat16), s, indptr, d)
+        segment.csr_mean_f32(h.to(torch.bfloat16), index, d)
     with pytest.raises(ValueError, match="forward only"):
-        segment.csr_mean_f32(h.requires_grad_(True), s, indptr, d)
+        segment.csr_mean_f32(h.requires_grad_(True), index, d)
+
+
+def bad_edges(case):
+    """The edges of graph() with one fault."""
+    src, dst, _ = graph(11)
+    src, dst = torch.tensor(src), torch.tensor(dst)
+    if case == "dst out of range":
+        dst[-1] = N
+    elif case == "src out of range":
+        src[7] = -1
+    else:  # one source more than destinations: indptr would not span src
+        src = torch.cat([src, src[:1]])
+    return src, dst
+
+
+@pytest.mark.parametrize("case", ["dst out of range", "src out of range",
+                                  "indptr not spanning src"])
+def test_a_malformed_index_is_refused_once_at_build(case, traced, monkeypatch):
+    """edges_by_row refuses the edges in its one host read (none for a
+    length mismatch, which the shapes show); a FullGraph of them refuses
+    its first mean without gradient and runs no wrapper."""
+    src, dst = bad_edges(case)
+    monkeypatch.setattr(segment, "csr_mean_f32", None)  # never reached
+    with pytest.raises(ValueError, match="edges_by_row"):
+        segment.edges_by_row(src, dst, N)
+    reads = 0 if case == "indptr not spanning src" else 1
+    assert metrics.span_stats().get("spmm.host_reads", {}).get("count", 0) == reads
+    with pytest.raises(ValueError, match="edges_by_row"):
+        segment.FullGraph(src, dst, N).mean(torch.ones(N, 4))
+
+
+@pytest.mark.parametrize("wrapper", ["segment_mean_bf16", "csr_mean_f32", "csr_gat"])
+def test_a_wrapper_refuses_an_index_past_its_input_without_a_device_read(wrapper, traced):
+    """An index whose sources may reach row N against an input of N rows:
+    refused by the shared check on host integers, before any read or
+    launch."""
+    from falcon_ttdforgnns_torch.ops.attention import csr_gat
+    src, dst, deg = graph(12)
+    index = segment.edges_by_row(torch.tensor(src), torch.tensor(dst), N, N + 1)
+    metrics.reset_spans()
+    d, h = torch.tensor(deg), torch.tensor(h_of(8))
+    calls = {"segment_mean_bf16": lambda: segment.segment_mean_bf16(h.bfloat16(), index, d),
+             "csr_mean_f32": lambda: segment.csr_mean_f32(h, index, d),
+             "csr_gat": lambda: csr_gat(h, torch.zeros(N, 2), torch.zeros(N, 2), index, 2,
+                                        False)}
+    with pytest.raises(ValueError, match=f"reach row {N}, past the {N} rows"):
+        calls[wrapper]()
+    assert metrics.span_stats() == {}
 
 
 # ------------------------------------------- the row index, once a forward
@@ -192,26 +246,35 @@ def span_calls(*names):
 
 @pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
 def test_evaluate_builds_the_row_index_once(dataset, traced, monkeypatch, bf16):
-    """evaluate() of three layers: one spmm.rows inside the first
-    spmm.aggregate, and each mean through its CSR wrapper (bf16: layer 1's
-    f32 mean, then two bf16 ones; f32: three f32 ones)."""
+    """Two evaluate() calls of three layers on one trainer: one spmm.rows in
+    all, in the first call before its layers' spans, whose one host read the
+    second call does not repeat; each mean through its CSR wrapper (bf16:
+    layer 1's f32 mean, then two bf16 ones; f32: three f32 ones)."""
     tr = SageTrainer(dataset, TrainConfig(**TINY, bf16=bf16), device="cpu")
     f32, bf = counting(monkeypatch, "csr_mean_f32"), counting(monkeypatch, "segment_mean_bf16")
     for call in (1, 2):
         tr.evaluate()
-        assert span_calls("spmm.rows", "spmm.aggregate") == [call, 3 * call]
-    assert metrics.span_stats()["spmm.rows"]["parents"] == ["spmm.aggregate"]
+        assert span_calls("spmm.rows", "spmm.aggregate") == [1, 3 * call]
+        assert metrics.span_stats()["spmm.host_reads"]["count"] == 1
+    assert metrics.span_stats()["spmm.rows"]["parents"] == ["trainer.eval"]
     assert (len(f32), len(bf)) == ((2, 4) if bf16 else (6, 0))
 
 
-def test_layerwise_inference_builds_the_row_index_once(dataset, traced, monkeypatch):
-    tr = SageTrainer(dataset, TrainConfig(**TINY), device="cpu")
-    f32 = counting(monkeypatch, "csr_mean_f32")
-    logits = tr.infer_full()
-    assert logits.shape == (dataset.num_nodes, dataset.num_classes)
-    assert span_calls("spmm.rows", "spmm.aggregate") == [1, 4]
-    assert metrics.span_stats()["spmm.rows"]["parents"] == ["spmm.aggregate"]
-    assert len(f32) == 3
+def test_layerwise_inference_builds_the_row_index_once(dataset, traced):
+    """infer_full() then evaluate() on one trainer share its one row index,
+    and infer_full() returns the logits that evaluate() scores, bit for
+    bit, in f32 and bf16."""
+    for bf16 in (False, True):
+        metrics.reset_spans()
+        tr = SageTrainer(dataset, TrainConfig(**TINY, bf16=bf16), device="cpu")
+        logits, scored = tr.infer_full(), []
+        inner = tr._accuracies
+        tr._accuracies = lambda x: scored.append(x) or inner(x)
+        tr.evaluate()
+        assert logits.shape == (dataset.num_nodes, dataset.num_classes)
+        assert logits.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert span_calls("spmm.rows", "spmm.aggregate") == [1, 6]
+        assert torch.equal(logits, scored[0])
 
 
 def test_full_neighbor_training_forward_builds_no_row_index(dataset, traced, monkeypatch):
@@ -232,10 +295,10 @@ def test_sage_forward_full_graph_matches_the_chunked_path():
     kw = dict(num_nodes=N, in_dim=16, hidden_dim=16, num_classes=4, num_layers=3,
               tt_ranks=(2, 2), p_shapes=(6, 10, 10), q_shapes=(2, 2, 4), weight_dist="normal")
     model = SAGE(dropout=0.0, **kw)
-    st, dt, degt = torch.tensor(src), torch.tensor(dst), torch.tensor(deg)
+    edges = segment.FullGraph(torch.tensor(src), torch.tensor(dst), N, torch.tensor(deg))
     with torch.no_grad():
-        got = model.forward_full_graph(st, dt, degt)
+        got = model.forward_full_graph(edges)
     params = [p.requires_grad for p in model.parameters()]
     assert all(params)
-    want = model.forward_full_graph(st, dt, degt)  # under grad: the chunked scatter
+    want = model.forward_full_graph(edges)  # under grad: the chunked scatter
     assert want.requires_grad and torch.equal(got, want.detach())

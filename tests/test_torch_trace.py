@@ -72,8 +72,8 @@ def test_tracing_off_leaves_no_record(dataset, path):
 
 
 # the host reads a path counts: one log line and the summary read two
-# values each; the evaluation reads its accuracies, and its bf16 layer's
-# sort check in the SpMM
+# values each; the evaluation reads its accuracies, and the first one the
+# checks of the row index it builds
 READS = {"dense": {"trainer.host_reads": 4}, "tt": {"trainer.host_reads": 4},
          "eval": {"trainer.host_reads": 1, "spmm.host_reads": 1}}
 
@@ -97,7 +97,7 @@ def expected(path):
     step = ["trainer.step"]
     if path == "eval":  # two layers: the first in f32, the second in bf16
         return {"trainer.eval": (1, [None]), "embed.lookup": (1, ["trainer.eval"]),
-                "spmm.aggregate": (2, ["trainer.eval"]), "spmm.rows": (1, ["spmm.aggregate"]),
+                "spmm.aggregate": (2, ["trainer.eval"]), "spmm.rows": (1, ["trainer.eval"]),
                 "tower.conv": (2, ["trainer.eval"]),
                 "trainer.accuracies": (1, ["trainer.eval"])}
     out = {"trainer.step": (STEPS, [None]), "trainer.prep": (1 + GROUPS, [None]),

@@ -105,14 +105,15 @@
 9. prints the per-kernel JSON line, then the device line.
 
 Since the single-card tools and the other models: after the flagship's
-bf16 evaluate() (whose bf16 means of layers 2 and 3 run the port's
-segment_mean_bf16, counted), its --eval-sampled accuracies beside the
-full ones and its --store-emb table (into a temporary directory, rows
-held to materialize_features'); after the untimed checks of step 4,
-segment_mean_bf16 bit for bit against its plain version on a slice of
-the products graph around its highest in-degree row plus rows without
-in-edges, then timed over the whole graph beside the chunked index_add_
-it replaced; tt_fwd, tt_fwd_sr and tt_grads at every rank pair of the
+bf16 evaluate() (whose bf16 mean of layer 2 runs the port's
+segment_mean_bf16 and that of layer 3's product csr_mean_bf16, counted),
+its --eval-sampled accuracies beside the full ones and its --store-emb
+table (into a temporary directory, rows held to materialize_features');
+after the untimed checks of step 4, segment_mean_bf16 bit for bit against
+its plain version on a slice of the products graph around its highest
+in-degree row plus rows without in-edges, then timed over the whole graph
+beside the chunked index_add_ it replaced, and csr_mean_bf16 the same way
+at D = 8 and 48 (bit for bit over the whole graph at 48); tt_fwd, tt_fwd_sr and tt_grads at every rank pair of the
 tuner's box (RANK_GRID) against their plain versions, and at 256, 256 on
 937,984 zipf ids, timed against their bounds; the profiler harness'
 TTEmbeddingBenchmark; before those, RGAT on a tiny typed graph against
@@ -278,6 +279,9 @@ REPLACES = {  # the TPU kernel each one ports (its def line)
     # f32 full-graph mean (the same spmm_mean), which this kernel sums in
     # edge order
     "csr_mean_f32": "falcon_ttdforgnns_tpu/ops/segment.py:69",
+    # none: the JAX package takes every conv's mean before its product; this
+    # kernel is the mean of a narrowing conv's product, summed in f32
+    "csr_mean_bf16": None,
     # none: the JAX package has no sampled GAT; its full-graph GAT's edge
     # softmax and weighted sum are XLA scatters
     "csr_gat_bf16": None, "csr_gat_f32": None,
@@ -1802,10 +1806,11 @@ def main_path_phase(ds, config, K, dev, counts) -> list:
     chunk_sweep(K, trainer.shapes, main_ids, dev)
     del main_ids
     log("evaluate() under bf16: full-graph propagation over every node and edge (layer 1's "
-        "f32 mean through csr_mean_f32, the bf16 means of layers 2 and 3 through "
-        "segment_mean_bf16)")
+        "f32 mean through csr_mean_f32, layer 2's bf16 mean through segment_mean_bf16, layer "
+        "3's after its product, 47 classes padded to 48, through csr_mean_bf16)")
     full_accs, counts["bf16 evaluate"] = checked_evaluate(
-        trainer, "bf16 evaluate", must_launch=("tt_fwd", "csr_mean_f32", "segment_mean_bf16"))
+        trainer, "bf16 evaluate",
+        must_launch=("tt_fwd", "csr_mean_f32", "segment_mean_bf16", "csr_mean_bf16"))
     flagship_tools_phase(trainer, ds, full_accs, dev, counts)
     del trainer
     torch.cuda.empty_cache()
@@ -2808,8 +2813,10 @@ def segment_kernel_check(ds, dev) -> dict:
     D = 256 and 100, beside its plain version and, as another function,
     the chunked index_add_ that evaluate ran before (f32 accumulation).
     Then the same for csr_mean_f32, the f32 mean of a bf16 evaluate's
-    first layer (:func:`csr_mean_check`).  Returns its JSON results
-    (segment_mean_bf16 at D = 256, csr_mean_f32 at D = 100)."""
+    first layer (:func:`csr_mean_check`), and for csr_mean_bf16, the mean of
+    its last conv's product (:func:`csr_mean_bf16_check`).  Returns its JSON
+    results (segment_mean_bf16 at D = 256, csr_mean_f32 at D = 100,
+    csr_mean_bf16 at D = 48)."""
     import torch
     from falcon_ttdforgnns_torch.ops import segment
     g, n = ds.graph, ds.num_nodes
@@ -2856,6 +2863,7 @@ def segment_kernel_check(ds, dev) -> dict:
                                             bound_ms=bound, bound_by=by, library_ms=None,
                                             index_add_ms=add_ms)
     res.update(csr_mean_check(g, (s_index, s_deg), (index, deg, dst), gen, dev))
+    res.update(csr_mean_bf16_check(g, (s_index, s_deg), (index, deg), gen, dev))
     return res
 
 
@@ -2943,6 +2951,59 @@ def csr_mean_check(g, rows_slice, rows_all, gen, dev) -> dict:
                                        bound_ms=bound, bound_by=by, library_ms=None,
                                        index_add_ms=chunked_ms)
     return res
+
+
+def csr_mean_bf16_check(g, rows_slice, rows_all, gen, dev) -> dict:
+    """csr_mean_bf16 (the mean of a bf16 product summed in f32: the last
+    conv's of the bf16 evaluate, 47 classes padded to D = 48) against its
+    plain version on the card (its sums in edge order on any device) bit for
+    bit: on segment_kernel_check's slice of rows at D = 8 and 48, values
+    N(0, 1) and N(0, 3e4^2); then over the whole graph at D = 48, timed beside its plain version (one
+    call, host clock) and, as the path it replaced, segment_mean_bf16 of the
+    256-wide rows the layer gathered before.  Returns its JSON results
+    (D = 48)."""
+    import torch
+    from falcon_ttdforgnns_torch.ops import segment
+    n = g.num_nodes
+    s_index, s_deg = rows_slice
+    index, deg = rows_all
+    for d in (8, 48):
+        for scale in (1.0, 3e4):
+            p = (torch.randn(n, d, generator=gen, device=dev) * scale).to(torch.bfloat16)
+            want = segment.csr_mean_bf16_plain(p, s_index.src, s_index.indptr, s_deg)
+            got = segment.csr_mean_bf16(p, s_index, s_deg)
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError(f"csr_mean_bf16 at D={d}, scale {scale}: not "
+                                     f"bit-identical to its plain version")
+            del want, got
+    log("  csr_mean_bf16 bit-identical to its plain version on the same rows, D = 8 and 48, "
+        "values N(0, 1) and N(0, 3e4^2)")
+    d, src, E = 48, index.src, index.src.numel()
+    p = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
+    reset_counts()
+    ms = cuda_ms(lambda: segment.csr_mean_bf16(p, index, deg), 5)
+    launches = launched().get("csr_mean_bf16", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = segment.csr_mean_bf16_plain(p, src, index.indptr, deg)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = segment.csr_mean_bf16(p, index, deg)
+    if not torch.equal(got.view(torch.int16), plain.view(torch.int16)):
+        raise AssertionError(f"csr_mean_bf16 over the whole graph at D={d}: not "
+                             f"bit-identical to its plain version")
+    del plain, got, p
+    h = torch.randn(n, 256, generator=gen, device=dev).to(torch.bfloat16)
+    wide_ms = cuda_ms(lambda: segment.segment_mean_bf16(h, index, deg), 3)
+    del h
+    bound, by = bound_ms(2 * 2 * n * d + 8 * E + 8 * (n + 1) + 4 * n, E * d + n * d)
+    log(f"  csr_mean_bf16 over all {n} rows and {E} edges, D = {d}: {ms:.3f} ms "
+        f"({launches} launches in the timing; {2 * E * d / ms / 1e6:.0f} GB/s of row "
+        f"gathers), bit-identical to its plain version, {plain_ms:.1f} ms (one call, host "
+        f"clock), bound {bound:.4f} ms by {by}; the layer's mean before, segment_mean_bf16 "
+        f"at D = 256, {wide_ms:.3f} ms")
+    return {"csr_mean_bf16": dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                  bound_by=by, library_ms=None)}
 
 
 def gat_kernel_check(ds, dev) -> dict:
@@ -3673,8 +3734,8 @@ def main() -> int:
     finish_cli_flags(cli_job)
     log("the bf16 fan-out mean's kernels against their plain versions:")
     tower_res = tower_kernel_check(dev)
-    log("the full-graph means' kernels (C2's bf16, the f32 one) against their plain "
-        "versions:")
+    log("the full-graph means' kernels (C2's bf16, the f32 one, the bf16 product's) against "
+        "their plain versions:")
     tower_res.update(segment_kernel_check(ds, dev))
     torch.cuda.empty_cache()
     log("the sampled GAT's CSR attention kernels against their plain version:")
@@ -3789,6 +3850,7 @@ def main() -> int:
                "spmm_gather": "full-graph gcn blocked",
                "fanout_mean_bf16": "main", "fanout_mean_bf16[bwd]": "main",
                "segment_mean_bf16": "bf16 evaluate", "csr_mean_f32": "bf16 evaluate",
+               "csr_mean_bf16": "bf16 evaluate",
                "csr_gat_bf16": "gat evaluate", "csr_gat_f32": "gat kernel phase",
                "adam_f32": "baseline"}
     kernels = [{"name": n, "route": "cuda",

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) kernels of the means: the SAGE conv tower's bf16 fan-out
 // mean and its backward, and the full-graph means over each row's in-edges,
-// bf16 and f32.
+// bf16 and f32, and the bf16 mean of a narrow product summed in f32.
 // Built by nvcc into a shared library with a plain C interface and loaded
 // through ctypes (falcon_ttdforgnns_torch/ops/_build.py); the Python
 // wrappers live in ops/tower.py and ops/segment.py next to their plain
@@ -81,6 +81,28 @@
 //   order.  The grid is as many blocks as stay resident (the occupancy
 //   query), each striding over the work, so no second wave of blocks
 //   starts late.
+//
+// csr_mean_bf16 (FullGraph.projected_mean of a bf16 p: the mean of a
+//   narrowing SAGE conv's neighbour product, which the evaluate takes after
+//   the product, not before it; no reference op: the JAX package takes the
+//   mean first, in bf16):
+//   p (n_p, d) bf16, d % 8 == 0, src (E,) int64 grouped by destination
+//   row, indptr (N + 1,) int64, deg (N,) f32 -> out (N, d) bf16,
+//   acc = +0; acc = acc + f32(p[src[e]]) in f32 for e = indptr[v] ..
+//   indptr[v + 1] - 1 in that order; out[v] = rn_bf16(acc / max(deg[v], 1))
+//   (IEEE division).  The bf16 mean of segment_mean_bf16 rounds after every
+//   add, which on rows of mixed signs (a product's) loses what a sum of
+//   ~50 terms keeps in f32, so this sum rounds once, at the end.
+// Bound on H100: bytes, p and the output (2 n d each), src (8 E), indptr
+//   (8 (N + 1)) and deg (4 N) once each: at ogbn-products and d = 48 (47
+//   classes padded) about 1.49 GB, 0.445 ms at 3.35 TB/s.  The gathers read
+//   one 96 B row per edge, 11.8 GB of random rows in a 235 MB table, on top
+//   of the 0.98 GB of src.  Design: csr_mean_f32's, for 16-byte groups of
+//   8 bf16: one thread per (row, group) on a 1-D grid (d = 48 is 6 groups,
+//   so a warp covers 5 1/3 rows and every lane is busy), 8 gathers in
+//   flight a thread before it adds, a row's last ones predicated so that
+//   its tail keeps them in flight too, a resident grid striding over the
+//   work.
 
 #include <cstdint>
 
@@ -243,6 +265,53 @@ __global__ void __launch_bounds__(kThreads) csr_mean_f32_rows(
   }
 }
 
+// out (N, 8 q) bf16 from bf16 p, walking each row's in-edges kAheadNarrow
+// at a time, the last loads of a row predicated: a thread per (row, 16-byte
+// group of 8 values), summing in f32.  Edges in flight a thread, timed at
+// ogbn-products and d = 48 on an H100 80GB HBM3 at 700 W: 4 6.71 ms, 8
+// 6.44, 16 7.75 (6.48 with 8 and a row's tail one edge at a time).
+constexpr int kAheadNarrow = 8;
+
+__device__ __forceinline__ void add_in(float (&acc)[8], const uint4& x) {
+  const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(v[k]);
+    acc[2 * k] = acc[2 * k] + f.x;
+    acc[2 * k + 1] = acc[2 * k + 1] + f.y;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) csr_mean_bf16_rows(
+    const uint4* __restrict__ p, const long long* __restrict__ src,
+    const long long* __restrict__ indptr, const float* __restrict__ deg, long long n_out,
+    int q, uint4* __restrict__ out) {
+  for (long long o = (long long)blockIdx.x * kThreads + threadIdx.x; o < n_out;
+       o += (long long)gridDim.x * kThreads) {
+    const long long v = o / q;
+    const int c = static_cast<int>(o - v * q);
+    const long long hi = indptr[v + 1];
+    long long e = indptr[v];
+    float acc[8] = {};  // +0 in every lane
+    for (; e < hi; e += kAheadNarrow) {
+      uint4 x[kAheadNarrow];
+#pragma unroll
+      for (int k = 0; k < kAheadNarrow; ++k)
+        if (e + k < hi) x[k] = p[src[e + k] * q + c];
+#pragma unroll
+      for (int k = 0; k < kAheadNarrow; ++k)
+        if (e + k < hi) add_in(acc, x[k]);
+    }
+    const float den = fmaxf(deg[v], 1.f);
+    uint4 r;
+    __nv_bfloat162* w = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      w[k] = __floats2bfloat162_rn(acc[2 * k] / den, acc[2 * k + 1] / den);
+    out[o] = r;
+  }
+}
+
 bool aligned4(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 3) == 0; }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -356,6 +425,23 @@ int csr_mean_f32(const void* h, const void* src, const void* indptr, const void*
                                st>>>(
         static_cast<const float*>(h), s, ip, dg, n_out, d, static_cast<float*>(out));
   }
+  return cudaGetLastError();
+}
+
+// p (n_p, d) bf16 contiguous, d % 8 == 0, src (E,) int64 in row order,
+// indptr (N + 1,) int64, deg (N,) f32 -> out (N, d) bf16; p and out 16-byte
+// aligned.  The caller checks that src and indptr index inside p and src.
+int csr_mean_bf16(const void* p, const void* src, const void* indptr, const void* deg,
+                  long long n, int d, void* out, void* stream) {
+  if (n < 0 || d <= 0 || d % 8) return cudaErrorInvalidValue;
+  if (!aligned16(p) || !aligned16(out)) return cudaErrorMisalignedAddress;
+  if (n == 0) return cudaSuccess;
+  const long long n_out = n * (d / 8);
+  csr_mean_bf16_rows<<<grid_resident<csr_mean_bf16_rows>(n_out), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(p), static_cast<const long long*>(src),
+      static_cast<const long long*>(indptr), static_cast<const float*>(deg), n_out, d / 8,
+      static_cast<uint4*>(out));
   return cudaGetLastError();
 }
 

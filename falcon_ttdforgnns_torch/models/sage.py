@@ -25,7 +25,7 @@ from torch import nn
 from ..nn.layers import SAGEConv, dropout
 from ..nn.tt_embedding import (AccessCountingEmbedding, DenseEmbedding,
                                FixedFeatureEmbedding, TTEmbeddingBag)
-from ..ops.segment import FullGraph
+from ..ops.segment import VECTOR, FullGraph
 from ..ops.tower import fanout_mean_bf16
 from ..utils.metrics import span
 
@@ -154,18 +154,47 @@ class SAGE(nn.Module):
         """Logits of every node by full-graph propagation (exact
         aggregation over every edge of ``graph``).  Each conv keeps its
         dtype here, as the JAX convs do: under ``bf16`` the activations
-        after the first conv, their SpMM and the logits are bf16."""
+        after the first conv, their SpMM and the logits are bf16.
+
+        A conv whose neighbour product is narrower than its input (padded to
+        16-byte rows: the last conv, 256 -> 47 padded to 48), where the mean
+        needs no gradient, takes its mean after the product, not before it:
+        the mean is linear, and it then gathers the narrow rows.  That mean
+        sums in f32 and rounds once (:meth:`FullGraph.projected_mean`), so
+        such a layer gives up the JAX package's bits for a result within
+        bf16 tolerance of them; every other layer keeps its order and bits."""
         with span("embed.lookup"):
             h = self.embed(torch.arange(self.num_nodes, dtype=torch.int32,
                                         device=graph.src.device), count_accesses=train)
         for li, conv in enumerate(self.convs):
-            with span("spmm.aggregate"):
-                agg = graph.mean(h)
+            width = self._product_width(conv, h)
+            if width:
+                with span("tower.conv"):
+                    p = conv.neigh_product(h, width)
+                with span("spmm.aggregate"):
+                    agg = graph.projected_mean(p, h.dtype)
+                del p
+            else:
+                with span("spmm.aggregate"):
+                    agg = graph.mean(h)
             with span("tower.conv"):
-                h = conv(h, agg)
+                h = conv.finish(h, agg) if width else conv(h, agg)
                 if li < self.num_layers - 1:
                     h = dropout(torch.relu(h), self.dropout, train, generator)
         return h  # (N, num_classes)
+
+    @staticmethod
+    def _product_width(conv: SAGEConv, h: torch.Tensor) -> int:
+        """The width of ``conv``'s neighbour product of ``h`` padded to whole
+        16-byte rows where its mean is to be taken after the product: where
+        that is narrower than ``h`` and the product needs no gradient; else
+        0."""
+        w = conv.lin_neigh.weight
+        if torch.is_grad_enabled() and (h.requires_grad or w.requires_grad):
+            return 0
+        dt = conv.dtype or torch.promote_types(h.dtype, w.dtype)
+        width = w.shape[0] + -w.shape[0] % VECTOR[dt]
+        return width if width < h.shape[1] else 0
 
     def apply_conv(self, h_dst: torch.Tensor, h_neigh: torch.Tensor,
                    layer_idx: int) -> torch.Tensor:

@@ -80,6 +80,21 @@ class SAGEConv(nn.Module):
     def forward(self, h_dst: torch.Tensor, h_neigh: torch.Tensor) -> torch.Tensor:
         return self._dense(self.lin_self, h_dst) + self._dense(self.lin_neigh, h_neigh)
 
+    def neigh_product(self, h: torch.Tensor, width: int) -> torch.Tensor:
+        """``lin_neigh`` of ``h`` (no bias), in the compute dtype, with zero
+        columns after the output's to ``width``: the product that a mean
+        taken after it (the mean is linear) gathers in place of ``h``."""
+        w = self.lin_neigh.weight
+        dt = self.dtype or torch.promote_types(h.dtype, w.dtype)
+        w = torch.nn.functional.pad(w, (0, 0, 0, width - w.shape[0]))
+        return h.to(dt) @ w.to(dt).t()
+
+    def finish(self, h_dst: torch.Tensor, neigh: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` from the mean of :meth:`neigh_product` (its columns
+        past the output's dropped) in place of ``lin_neigh`` of the mean: the
+        self product and bias, then the add."""
+        return self._dense(self.lin_self, h_dst) + neigh[:, :self.lin_self.out_features]
+
 
 def dense(in_dim: int, out_dim: int, use_bias: bool = True,
           generator: Optional[torch.Generator] = None) -> nn.Linear:

@@ -57,6 +57,7 @@ _SIGNATURES: Dict[str, Dict[str, list]] = {
         "fanout_mean_bf16_bwd": [_p, _ll, _i, _i, _p, _p],
         "segment_mean_bf16": [_p, _p, _p, _p, _ll, _i, _p, _p],
         "csr_mean_f32": [_p, _p, _p, _p, _ll, _i, _p, _p],
+        "csr_mean_bf16": [_p, _p, _p, _p, _ll, _i, _p, _p],
     },
     "attn_kernels": {
         "csr_gat_bf16": [_p, _p, _p, _p, _p, _ll, _i, _i, _i, _p, _p],

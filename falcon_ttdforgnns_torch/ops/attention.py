@@ -21,12 +21,10 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .segment import RowIndex, csr_check
+from .segment import VECTOR, RowIndex, csr_check
 
 NEGATIVE_SLOPE = 0.2  # leaky_relu on the attention scores
 KERNELS = ("csr_gat_bf16", "csr_gat_f32")
-# values of one 16-byte load: a head's width in x must be a multiple of it
-VECTOR = {torch.bfloat16: 8, torch.float32: 4}
 PLAIN_CHUNK = 1 << 20  # edges a step of the plain version: (chunk, H, Cp) f32 messages
 _launches = dict.fromkeys(KERNELS, 0)
 

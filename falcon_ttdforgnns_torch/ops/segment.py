@@ -27,6 +27,16 @@ means read the row index :class:`RowIndex`, which :func:`edges_by_row`
 builds and checks; :class:`FullGraph` holds a graph's edges with their
 index, built once for its life, and decides which layout serves a mean.
 The CSR wrappers share one check on host integers, :func:`csr_check`.
+
+A mean taken after a narrowing product instead of before it
+(:meth:`FullGraph.projected_mean`: the last SAGE conv of an evaluate, whose
+mean then gathers 48-wide rows where it gathered 256-wide ones) sums each
+row in f32 and rounds once: rows of mixed signs lose too much to a bf16
+rounding after every add.  A bf16 product goes through
+:func:`csr_mean_bf16`, the wrapper of ``csr_mean_bf16`` (the same source),
+beside its plain version :func:`csr_mean_bf16_plain`; an f32 one through
+:func:`csr_mean_f32`.  Their rows are padded to whole 16-byte loads,
+:data:`VECTOR` values.
 """
 
 from __future__ import annotations
@@ -44,7 +54,10 @@ HEADED_SPMM_CHUNK = 1 << 19  # headed_spmm
 # a bf16 count of ones stops here: 256 + 1 rounds (to even) back to 256
 BF16_COUNT_MAX = 256
 
-KERNELS = ("segment_mean_bf16", "csr_mean_f32")
+# values of one 16-byte load: the width of a CSR kernel's rows is a multiple of it
+VECTOR = {torch.bfloat16: 8, torch.float32: 4}
+
+KERNELS = ("segment_mean_bf16", "csr_mean_f32", "csr_mean_bf16")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -165,7 +178,8 @@ def csr_check(name: str, index: RowIndex, h: torch.Tensor, dtypes: Tuple[torch.d
               rowwise: Tuple[torch.Tensor, ...] = (), others: Tuple[torch.Tensor, ...] = ()
               ) -> bool:
     """The one check of the CSR wrappers (:func:`segment_mean_bf16`,
-    :func:`csr_mean_f32`, ``attention.csr_gat``), on host integers alone:
+    :func:`csr_mean_f32`, :func:`csr_mean_bf16`, ``attention.csr_gat``), on
+    host integers alone:
     ``h``'s dtype among ``dtypes``; forward only; one row of each ``rowwise``
     tensor (a mean's ``deg``, the attention's ``er``) an index row; the
     index's sources inside ``h``'s rows; and the device rule.  False where
@@ -192,26 +206,36 @@ def csr_check(name: str, index: RowIndex, h: torch.Tensor, dtypes: Tuple[torch.d
     return True
 
 
-def segment_mean_bf16_plain(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
-                            deg: torch.Tensor) -> torch.Tensor:
-    """(N, D) bf16 mean of each row's in-edges: ``acc = bf16(acc +
-    h[src[e]])`` over the row's edges ``indptr[v] .. indptr[v+1] - 1`` in
-    order from +0, then ``bf16(acc / max(bf16(deg[v]), 1))``.  The k-th
-    in-edge of every row at once, k = 0, 1, ...: each add rounds to bf16 as
-    XLA's does."""
+def _sum_by_rank(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """(N, D) ``dtype`` sum of each row's in-edges: ``acc = acc +
+    h[src[e]]`` in ``dtype`` over the row's edges ``indptr[v] ..
+    indptr[v+1] - 1`` in order from +0.  The k-th in-edge of every row at
+    once, k = 0, 1, ...: each add rounds to ``dtype``, in edge order on any
+    device."""
     n = indptr.shape[0] - 1
     counts = indptr[1:] - indptr[:-1]
     rows = torch.repeat_interleave(torch.arange(n, device=h.device), counts)
     rank = torch.arange(src.shape[0], device=h.device) - indptr[rows]
     by_rank = torch.argsort(rank, stable=True)
     ends = torch.cumsum(torch.bincount(rank, minlength=1), 0).tolist()
-    acc = torch.zeros((n, h.shape[1]), dtype=torch.bfloat16, device=h.device)
+    acc = torch.zeros((n, h.shape[1]), dtype=dtype, device=h.device)
     start = 0
     for end in ends:
         sel = by_rank[start:end]
         r = rows.index_select(0, sel)
-        acc[r] = acc[r] + h.index_select(0, src.index_select(0, sel))
+        acc[r] = acc[r] + h.index_select(0, src.index_select(0, sel)).to(dtype)
         start = end
+    return acc
+
+
+def segment_mean_bf16_plain(h: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
+                            deg: torch.Tensor) -> torch.Tensor:
+    """(N, D) bf16 mean of each row's in-edges: ``acc = bf16(acc +
+    h[src[e]])`` over the row's edges ``indptr[v] .. indptr[v+1] - 1`` in
+    order from +0, then ``bf16(acc / max(bf16(deg[v]), 1))``: each add
+    rounds to bf16 as XLA's does."""
+    acc = _sum_by_rank(h, src, indptr, torch.bfloat16)
     den = torch.clamp(deg.to(torch.bfloat16), min=1.0)
     return (acc.float() / den.float()[:, None]).to(torch.bfloat16)
 
@@ -262,6 +286,31 @@ def csr_mean_f32(h: torch.Tensor, index: RowIndex, deg: torch.Tensor) -> torch.T
     return _launch_mean("csr_mean_f32", h, index, deg)
 
 
+def csr_mean_bf16_plain(p: torch.Tensor, src: torch.Tensor, indptr: torch.Tensor,
+                        deg: torch.Tensor) -> torch.Tensor:
+    """(N, D) bf16 mean of each row's in-edges summed in f32: ``acc = acc
+    + f32(p[src[e]])`` over the row's edges in order from +0, then
+    ``bf16(acc / max(deg[v], 1))``, the one rounding to bf16.  Its sums keep
+    edge order on any device, so on the card too the kernel is held to it
+    bit for bit; on the CPU it is ``csr_mean_f32_plain(p.float(),
+    ...).to(bfloat16)``."""
+    acc = _sum_by_rank(p, src, indptr, torch.float32)
+    return (acc / torch.clamp(deg.to(torch.float32), min=1.0)[:, None]).to(torch.bfloat16)
+
+
+def csr_mean_bf16(p: torch.Tensor, index: RowIndex, deg: torch.Tensor) -> torch.Tensor:
+    """The kernel's wrapper: p (n_p, D) bf16 with D a multiple of 8 (whole
+    16-byte loads; on the card its data 16-byte aligned, else the launch
+    raises), the row index of N rows, deg (N,) -> (N, D) bf16 (see
+    :func:`csr_mean_bf16_plain`).  Forward only."""
+    if p.dim() != 2 or p.shape[1] % VECTOR[torch.bfloat16]:
+        raise ValueError(f"csr_mean_bf16: rows of shape {tuple(p.shape[1:])}, not a multiple "
+                         f"of {VECTOR[torch.bfloat16]} values (16 bytes; pad the product)")
+    if not csr_check("csr_mean_bf16", index, p, (torch.bfloat16,), (deg,)):
+        return csr_mean_bf16_plain(p, index.src, index.indptr, deg)
+    return _launch_mean("csr_mean_bf16", p, index, deg)
+
+
 @dataclass
 class FullGraph:
     """The full graph's edges as a trainer keeps them for its life: the COO
@@ -303,20 +352,37 @@ class FullGraph:
         grad = h.requires_grad and torch.is_grad_enabled()
         if h.dtype == torch.bfloat16 and grad:
             raise ValueError("the bf16 spmm_mean is forward only; train full-graph in f32")
-        deg = self.deg
         if h.dtype in (torch.bfloat16, torch.float32) and not grad:
-            index = self.index()
-            if deg is None:
-                deg = index.indptr.diff()
-                if h.dtype == torch.bfloat16:
-                    deg = torch.clamp(deg, max=BF16_COUNT_MAX)
+            index, deg = self.index(), self._row_degree(h.dtype)
             if h.dtype == torch.float32:
                 return csr_mean_f32(h, index, deg)
             return segment_mean_bf16(h, index, deg)
         s = spmm_sum_chunked(h, self.src, self.dst, self.num_nodes, chunk=self.chunk)
+        deg = self.deg
         if deg is None:
             deg = torch.bincount(self.dst, minlength=self.num_nodes)
         return s / torch.clamp(deg.to(h.dtype), min=1.0)[:, None]
+
+    def projected_mean(self, p: torch.Tensor, of: torch.dtype) -> torch.Tensor:
+        """The mean of ``p``, a linear map of an ``of`` input taken before
+        its mean, forward only: each row's sum in edge order in f32, rounded
+        once to ``p``'s dtype (:func:`csr_mean_bf16` for bf16,
+        :func:`csr_mean_f32` for f32), over the degree that :meth:`mean` of
+        the ``of`` input divides by (given, or counted as there), not
+        rounded to bf16.  ``p``'s width is a multiple of ``VECTOR[p.dtype]``."""
+        index, deg = self.index(), self._row_degree(of)
+        if p.dtype == torch.bfloat16:
+            return csr_mean_bf16(p, index, deg)
+        return csr_mean_f32(p, index, deg)
+
+    def _row_degree(self, dtype: torch.dtype) -> torch.Tensor:
+        """The degree a forward mean of a ``dtype`` input divides by: the
+        given one, else the row index's count, which a bf16 sum of ones
+        stops at :data:`BF16_COUNT_MAX`."""
+        if self.deg is not None:
+            return self.deg
+        deg = self.index().indptr.diff()
+        return torch.clamp(deg, max=BF16_COUNT_MAX) if dtype == torch.bfloat16 else deg
 
 
 def spmm_mean(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,

@@ -1242,10 +1242,46 @@ def test_csr_mean_f32_kernel_bit_identical(cuda, d):
     torch.testing.assert_close(got, chunked, rtol=1e-6, atol=1e-6 * float(chunked.abs().max()))
 
 
+@pytest.mark.parametrize("d", [8, 16, 48])
+def test_csr_mean_bf16_kernel_bit_identical(cuda, d):
+    """The mean of a bf16 product, summed in f32 and rounded once, against
+    its plain version on the card (its sums in edge order on any device)
+    and against csr_mean_f32_plain on the CPU cast to bf16, bit for bit: a
+    row of 700 in-edges, zero-degree rows, the last row, a given degree and
+    a counted one, values N(0, 1) and N(0, 3e4^2); one launch a call; p one
+    value past a 16-byte boundary is refused at the launch."""
+    from falcon_ttdforgnns_torch.ops import segment
+    rng = np.random.default_rng(200 + d)
+    n = 5000
+    deg = rng.integers(0, 30, n)
+    deg[::9] = 0
+    deg[3], deg[n - 1] = 700, 12
+    dst = torch.tensor(np.repeat(np.arange(n), deg), device=cuda)
+    src = torch.tensor(rng.integers(0, n, int(deg.sum())), device=cuda)
+    index = segment.edges_by_row(src, dst, n)
+    cpu = (index.src.cpu(), index.indptr.cpu())
+    for scale in (1.0, 3e4):
+        p = (torch.randn(n, d, device=cuda) * scale).to(torch.bfloat16)
+        for degf in (torch.tensor(deg.astype(np.float32), device=cuda), index.indptr.diff()):
+            segment.reset_launch_counts()
+            got = segment.csr_mean_bf16(p, index, degf)
+            assert segment.launch_counts()["csr_mean_bf16"] == 1
+            want = segment.csr_mean_bf16_plain(p, index.src, index.indptr, degf)
+            assert got.dtype == torch.bfloat16 and got.shape == (n, d)
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+            f32 = segment.csr_mean_f32_plain(p.float().cpu(), *cpu, degf.cpu())
+            assert torch.equal(got.cpu().view(torch.int16),
+                               f32.to(torch.bfloat16).view(torch.int16))
+    buf = torch.empty(n * d + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        segment.csr_mean_bf16(buf[1:].view(n, d), index, degf)
+
+
 def test_bf16_evaluate_takes_one_row_index_and_the_csr_means(cuda):
     """A --bf16 evaluate() of three layers on the card: layer 1's f32 mean
-    through csr_mean_f32, layers 2 and 3 through segment_mean_bf16, one
-    spmm.rows span in all, in the first call before its layers' spans; the
+    through csr_mean_f32, layer 2's through segment_mean_bf16, and layer 3's
+    (16 -> 4 classes, padded to 8) after its product through csr_mean_bf16,
+    one spmm.rows span in all, in the first call before its layers' spans; the
     same accuracies in both calls (no atomics left in the means); and a
     --full-neighbor step's
     f32 means keep the chunked scatter (no csr_mean_f32, no row index)."""
@@ -1264,7 +1300,8 @@ def test_bf16_evaluate_takes_one_row_index_and_the_csr_means(cuda):
         for call in (1, 2):
             segment.reset_launch_counts()
             accs.append(gpu.evaluate())
-            assert segment.launch_counts() == {"segment_mean_bf16": 2, "csr_mean_f32": 1}
+            assert segment.launch_counts() == {"segment_mean_bf16": 1, "csr_mean_f32": 1,
+                                               "csr_mean_bf16": 1}
             stats = metrics.span_stats()
             assert stats["spmm.rows"]["calls"] == 1
             assert stats["spmm.rows"]["parents"] == ["trainer.eval"]

@@ -140,7 +140,8 @@ def test_wrapper_runs_the_plain_version_on_the_cpu_only():
     segment.reset_launch_counts()
     assert torch.equal(segment.segment_mean_bf16(h, index, d),
                        segment.segment_mean_bf16_plain(h, index.src, index.indptr, d))
-    assert segment.launch_counts() == {"segment_mean_bf16": 0, "csr_mean_f32": 0}
+    assert segment.launch_counts() == {"segment_mean_bf16": 0, "csr_mean_f32": 0,
+                                       "csr_mean_bf16": 0}
     with pytest.raises(ValueError):
         meta = segment.RowIndex(index.src.to("meta"), index.indptr.to("meta"), N)
         segment.segment_mean_bf16(h.to("meta"), meta, d.to("meta"))

@@ -152,7 +152,8 @@ def test_wrapper_checks_and_runs_the_plain_version_on_the_cpu_only():
     segment.reset_launch_counts()
     assert torch.equal(segment.csr_mean_f32(h, index, d),
                        segment.csr_mean_f32_plain(h, index.src, index.indptr, d))
-    assert segment.launch_counts() == {"segment_mean_bf16": 0, "csr_mean_f32": 0}
+    assert segment.launch_counts() == {"segment_mean_bf16": 0, "csr_mean_f32": 0,
+                                       "csr_mean_bf16": 0}
     with pytest.raises(ValueError):
         meta = segment.RowIndex(index.src.to("meta"), index.indptr.to("meta"), N)
         segment.csr_mean_f32(h.to("meta"), meta, d.to("meta"))
@@ -249,15 +250,18 @@ def test_evaluate_builds_the_row_index_once(dataset, traced, monkeypatch, bf16):
     """Two evaluate() calls of three layers on one trainer: one spmm.rows in
     all, in the first call before its layers' spans, whose one host read the
     second call does not repeat; each mean through its CSR wrapper (bf16:
-    layer 1's f32 mean, then two bf16 ones; f32: three f32 ones)."""
+    layer 1's f32 mean, layer 2's bf16 one, and the mean of the last
+    conv's product, 16 -> 4 classes padded to 8, in csr_mean_bf16; f32:
+    three f32 ones, the last at the product's 4 columns)."""
     tr = SageTrainer(dataset, TrainConfig(**TINY, bf16=bf16), device="cpu")
     f32, bf = counting(monkeypatch, "csr_mean_f32"), counting(monkeypatch, "segment_mean_bf16")
+    proj = counting(monkeypatch, "csr_mean_bf16")
     for call in (1, 2):
         tr.evaluate()
         assert span_calls("spmm.rows", "spmm.aggregate") == [1, 3 * call]
         assert metrics.span_stats()["spmm.host_reads"]["count"] == 1
     assert metrics.span_stats()["spmm.rows"]["parents"] == ["trainer.eval"]
-    assert (len(f32), len(bf)) == ((2, 4) if bf16 else (6, 0))
+    assert (len(f32), len(bf), len(proj)) == ((2, 2, 2) if bf16 else (6, 0, 0))
 
 
 def test_layerwise_inference_builds_the_row_index_once(dataset, traced):
@@ -287,12 +291,16 @@ def test_full_neighbor_training_forward_builds_no_row_index(dataset, traced, mon
     assert span_calls("spmm.rows", "spmm.aggregate") == [0, 3] and not f32
 
 
-def test_sage_forward_full_graph_matches_the_chunked_path():
+@pytest.mark.parametrize("classes", [16, 4])
+def test_sage_forward_full_graph_matches_the_chunked_path(classes):
     """SAGE.forward_full_graph in f32 without gradient through the row
     index against the same model with every mean on the chunked scatter:
-    the same bits (each row's sum in edge order on both)."""
+    the same bits where no conv narrows (each row's sum in edge order on
+    both); where the last conv narrows (16 -> 4) its mean is taken after
+    its product without gradient, the same linear map in another order:
+    within f32 rounding of the chunked path."""
     src, dst, deg = graph(10)
-    kw = dict(num_nodes=N, in_dim=16, hidden_dim=16, num_classes=4, num_layers=3,
+    kw = dict(num_nodes=N, in_dim=16, hidden_dim=16, num_classes=classes, num_layers=3,
               tt_ranks=(2, 2), p_shapes=(6, 10, 10), q_shapes=(2, 2, 4), weight_dist="normal")
     model = SAGE(dropout=0.0, **kw)
     edges = segment.FullGraph(torch.tensor(src), torch.tensor(dst), N, torch.tensor(deg))
@@ -301,4 +309,10 @@ def test_sage_forward_full_graph_matches_the_chunked_path():
     params = [p.requires_grad for p in model.parameters()]
     assert all(params)
     want = model.forward_full_graph(edges)  # under grad: the chunked scatter
-    assert want.requires_grad and torch.equal(got, want.detach())
+    assert want.requires_grad
+    if classes == 16:
+        assert torch.equal(got, want.detach())
+    else:
+        assert not torch.equal(got, want.detach())  # the last mean took the other order
+        torch.testing.assert_close(got, want.detach(), rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))

@@ -95,10 +95,12 @@ def test_untimed_tracing_only_names_the_blocks(dataset):
 def expected(path):
     """Each span the path runs: (calls, the spans it runs inside)."""
     step = ["trainer.step"]
-    if path == "eval":  # two layers: the first in f32, the second in bf16
+    if path == "eval":  # two layers: the first in f32, the second in bf16, whose
+        # conv narrows (16 -> 4 classes, padded to 8): its product, then its mean
+        # and its finish, two tower.conv spans
         return {"trainer.eval": (1, [None]), "embed.lookup": (1, ["trainer.eval"]),
                 "spmm.aggregate": (2, ["trainer.eval"]), "spmm.rows": (1, ["trainer.eval"]),
-                "tower.conv": (2, ["trainer.eval"]),
+                "tower.conv": (3, ["trainer.eval"]),
                 "trainer.accuracies": (1, ["trainer.eval"])}
     out = {"trainer.step": (STEPS, [None]), "trainer.prep": (1 + GROUPS, [None]),
            "trainer.log": (2, [None]), "sampler.device": (STEPS, step),

@@ -88,14 +88,29 @@ def eval_numbers(prog_logits: torch.Tensor, prog_accs: Sequence[float],
     }
 
 
-def tree_faults(edge_keys: torch.Tensor, deg: torch.Tensor, num_nodes: int,
-                fanouts: Sequence[int], steps: List[dict], train_mask: torch.Tensor,
-                labels: torch.Tensor) -> int:
+def in_rows(indptr: torch.Tensor, indices: torch.Tensor, rows: torch.Tensor,
+            vals: torch.Tensor) -> torch.Tensor:
+    """Whether each ``vals[i]`` is among the sources of row ``rows[i]``: a
+    binary search within the row, whose sources are ascending.  Works on
+    the CSR as it is: nothing is built per edge."""
+    lo, hi = indptr[rows], indptr[rows + 1]
+    end = hi.clone()
+    for _ in range(max(int((hi - lo).max()), 1).bit_length()):
+        mid = (lo + hi) // 2
+        less = (indices[mid.clamp(max=indices.numel() - 1)] < vals) & (lo < hi)
+        lo = torch.where(less, mid + 1, lo)
+        hi = torch.where(less, hi, mid)
+    return (lo < end) & (indices[lo.clamp(max=indices.numel() - 1)] == vals)
+
+
+def tree_faults(indptr: torch.Tensor, indices: torch.Tensor, fanouts: Sequence[int],
+                steps: List[dict], train_mask: torch.Tensor, labels: torch.Tensor) -> int:
     """Count what is wrong in the program's recorded steps: a sampled child
     that is no in-neighbour of its parent (an isolated parent samples
     itself), a level of the wrong width, a seed outside the train split or
     repeated within the steps, a label that is not the seed's."""
     bad = 0
+    deg = indptr[1:] - indptr[:-1]
     seen = torch.cat([st["seeds"].long() for st in steps])
     bad += int(seen.numel() - torch.unique(seen).numel())
     bad += int((~train_mask[seen]).sum())
@@ -110,9 +125,7 @@ def tree_faults(edge_keys: torch.Tensor, deg: torch.Tensor, num_nodes: int,
                 return bad + 1
             par = parent.repeat_interleave(f, dim=1)
             iso = deg[par] == 0
-            key = par * num_nodes + child
-            at = torch.searchsorted(edge_keys, key.reshape(-1)).clamp(max=edge_keys.numel() - 1)
-            hit = (edge_keys[at] == key.reshape(-1)).reshape(key.shape)
+            hit = in_rows(indptr, indices, par.reshape(-1), child.reshape(-1)).reshape(par.shape)
             bad += int((~torch.where(iso, child == par, hit)).sum())
             parent = child
     return bad

@@ -1,6 +1,7 @@
 """The benchmark's graphs: a numpy copy of the port's planted-partition
 generator (``hard_synthetic_dataset`` with an in-neighbour CSR whose rows
-are sorted, as the port's native builder leaves them), kept on disk in
+are sorted, as the port's native builder leaves them), and any generator
+that a file ``gnnbench/graphs/<name>.py`` brings, kept on disk in
 ``gnnbench/cache/`` once per checkout.
 
 A configuration's graph is data, not the seed's: it is drawn at its own
@@ -11,8 +12,10 @@ official_split=True)`` (``tests/test_gnnbench_graph.py``).
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import re
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Sequence
@@ -98,11 +101,32 @@ def planted_partition(num_nodes: int, avg_degree: int, num_classes: int, feat_di
 
 
 GENERATORS = {"planted_partition": planted_partition}
+GRAPHS = Path(__file__).resolve().parent / "graphs"  # generators found by file
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
+
+
+def generator(name: str):
+    """The generator a configuration's ``graph.generator`` names: a built-in
+    one, or the ``generate`` of ``graphs/<name>.py`` beside this file."""
+    if name in GENERATORS:
+        return GENERATORS[name]
+    path = GRAPHS / f"{name}.py"
+    if not NAME.fullmatch(name) or not path.is_file():
+        raise ValueError(f"no graph generator {name!r}: neither built in "
+                         f"({sorted(GENERATORS)}) nor a file {path}")
+    from .harness import _load_module  # loads it as the harness loads a reader
+    return _load_module(path).generate
 
 
 def _cache_name(spec: dict) -> str:
-    return (f"{spec['generator']}-n{spec['num_nodes']}-d{spec['avg_degree']}"
-            f"-c{spec['num_classes']}-s{spec['seed']}")
+    """The built-in generator's names as they were; any other generator's
+    directory is named from a hash of its whole spec, so that two specs
+    never share one."""
+    if spec["generator"] in GENERATORS:
+        return (f"{spec['generator']}-n{spec['num_nodes']}-d{spec['avg_degree']}"
+                f"-c{spec['num_classes']}-s{spec['seed']}")
+    digest = hashlib.sha256(json.dumps(spec, sort_keys=True).encode()).hexdigest()[:16]
+    return f"{spec['generator']}-{digest}"
 
 
 def load_graph(spec: dict, cache_dir: Path) -> Graph:
@@ -115,7 +139,7 @@ def load_graph(spec: dict, cache_dir: Path) -> Graph:
     if meta_path.exists() and json.loads(meta_path.read_text()) == spec:
         arrays = {k: np.load(where / f"{k}.npy") for k in GRAPH_FILES}
         return Graph(**arrays, num_classes=spec["num_classes"], feat_dim=spec["feat_dim"])
-    g = GENERATORS[spec["generator"]](**args)
+    g = generator(spec["generator"])(**args)
     cache_dir.mkdir(parents=True, exist_ok=True)
     tmp = cache_dir / f".{where.name}.{os.getpid()}.tmp"
     tmp.mkdir(parents=True, exist_ok=True)

@@ -41,12 +41,13 @@ import numpy as np
 import torch
 
 from . import check
-from .graph import Graph, edge_keys, load_graph
+from .graph import Graph, load_graph
 from .profiling import Slice, complete_slice
 
 PKG = Path(__file__).resolve().parent  # the readers: code, beside this file
 FORBIDDEN = ("jax", "jaxlib", "flax", "falcon_ttdforgnns_tpu")
 CHECK_STEPS = 3  # the first steps the reference repeats
+BUFFERS = "_gnnbench_buffers"  # the trainer's entry for its model's buffers at build
 # what a configuration's reference module gives (gnnbench/README.md)
 INTERFACE = ("ARCH", "param_shapes", "make_weights", "train_readings", "full_graph_logits",
              "level_ids", "CONTROLS", "ADAM_B1", "DROPOUT_SITES", "mask_shapes",
@@ -173,7 +174,9 @@ def train_config(config: dict, traffic: dict, seed: int):
 
 
 def build_trainer(ds, config: dict, traffic: dict, seed: int, weights, device):
-    """The program's trainer, its parameters set to the run's weights."""
+    """The program's trainer, its parameters set to the run's weights; a
+    copy of its model's buffers as they then are is kept on the host for
+    ``reset_state``."""
     from falcon_ttdforgnns_torch.train.trainer import SageTrainer
     trainer = SageTrainer(ds, train_config(config, traffic, seed), device=str(device))
     params = dict(trainer.model.named_parameters())
@@ -183,6 +186,8 @@ def build_trainer(ds, config: dict, traffic: dict, seed: int, weights, device):
     with torch.no_grad():
         for n, w in weights.items():
             params[n].copy_(w)
+    trainer.__dict__[BUFFERS] = {n: b.detach().to("cpu", copy=True)
+                                 for n, b in trainer.model.named_buffers()}
     return trainer
 
 
@@ -202,13 +207,21 @@ def adam_moments(trainer) -> Dict[str, torch.Tensor]:
 
 def reset_state(trainer, weights) -> None:
     """The trainer's state as set-up built it, in place: the run's weights,
-    Adam's moments and counts (the dense group's and the fused cores') at
-    zero, the plateau's state new and the step count 0.  Its generators
-    are reseeded by ``train_epoch`` itself."""
+    the model's buffers (a BatchNorm's running statistics) as
+    ``build_trainer`` left them, Adam's moments and counts (the dense
+    group's and the fused cores') at zero, the plateau's state new and the
+    step count 0.  Its generators are reseeded by ``train_epoch`` itself."""
     params = dict(trainer.model.named_parameters())
+    buffers = dict(trainer.model.named_buffers())
+    kept = trainer.__dict__.get(BUFFERS, {})
+    if sorted(kept) != sorted(buffers):
+        raise CellError(f"the model's buffers {sorted(buffers)} are not those build_trainer "
+                        f"kept: {sorted(kept)}")
     with torch.no_grad():
         for n, w in weights.items():
             params[n].copy_(w)
+        for n, b in kept.items():
+            buffers[n].copy_(b)
         for st in (trainer.opt_state, getattr(trainer, "tt_opt", None)):
             if st is not None:
                 for t in (*st.m, *st.v, st.count):
@@ -218,8 +231,6 @@ def reset_state(trainer, weights) -> None:
         pl.best_value.fill_(math.inf)
         pl.plateau_count.zero_()
         pl.ema.fill_(math.inf)
-    if any(True for _ in trainer.model.buffers()):
-        raise CellError("the model holds buffers that reset_state does not know")
     trainer.step = 0
 
 
@@ -231,9 +242,11 @@ class StepRecorder:
     """Records the program's first steps through the window's own call,
     ``--mode puregpu``'s ``device_train_step``: each step's seeds, sampled
     tree, labels, dropout masks (the ``dropout`` of each of the reference's
-    ``DROPOUT_SITES``) and loss; after the first step the gradient norms
-    Adam's moments give; after the last the norm of each parameter's change
-    from the run's weights, and then it ends the epoch."""
+    ``DROPOUT_SITES``: its uniform draw repeated on a copy of its
+    generator, so that a kept value that is exactly 0 reads as kept) and
+    loss; after the first step the gradient norms Adam's moments give;
+    after the last the norm of each parameter's change from the run's
+    weights, and then it ends the epoch."""
 
     def __init__(self, trainer, weights, n_steps: int, ref):
         self.trainer, self.weights, self.n, self.ref = trainer, weights, n_steps, ref
@@ -257,9 +270,12 @@ class StepRecorder:
 
     def _recording(self, inner):
         def drop(h, p, train, generator):
+            if self._cur is None or not train or p <= 0:
+                return inner(h, p, train, generator)
+            copy = generator_copy(generator, h.device)
             out = inner(h, p, train, generator)
-            if self._cur is not None and train and p > 0:
-                self._cur["masks"].append((out != 0).cpu())
+            keep = torch.rand(h.shape, generator=copy, device=h.device) < 1.0 - p
+            self._cur["masks"].append(keep.cpu())
             return out
         return drop
 
@@ -304,6 +320,20 @@ class StepRecorder:
             raise CellError(f"the program ran {len(self.steps)} steps, {self.n} are checked")
         return {"losses": [s["loss"] for s in self.steps], "grads": self.grads,
                 "grad_norms": self.grad_norms, "change_norms": self.change_norms}
+
+
+def generator_copy(generator: Optional[torch.Generator], device) -> torch.Generator:
+    """A new generator in the state of ``generator`` (the device's default
+    one where None): it draws what ``generator`` draws next."""
+    device = torch.device(device)
+    if generator is None:
+        state = (torch.cuda.get_rng_state(device) if device.type == "cuda"
+                 else torch.get_rng_state())
+    else:
+        state = generator.get_state()
+    copy = torch.Generator(device=device)
+    copy.set_state(state)
+    return copy
 
 
 def steps_on(steps: List[dict], device) -> List[dict]:
@@ -368,17 +398,16 @@ class TrainDrive:
         c = self.ctx
         g, ref = c.graph, c.ref
         dev = torch.device(device)
-        keys = torch.as_tensor(edge_keys(g), device=dev)
-        deg = torch.as_tensor(np.diff(g.indptr), device=dev)
+        indptr = torch.as_tensor(g.indptr, device=dev)
+        indices = torch.as_tensor(g.indices, device=dev)
         train_mask = torch.zeros(g.num_nodes, dtype=torch.bool, device=dev)
         train_mask[torch.as_tensor(g.train_idx, device=dev)] = True
         labels = torch.as_tensor(g.labels, device=dev)
         steps = steps_on(c.steps, dev)
         model = c.config["model"]
-        bad = check.tree_faults(keys, deg, g.num_nodes, model["fanouts"], steps,
-                                train_mask, labels)
+        bad = check.tree_faults(indptr, indices, model["fanouts"], steps, train_mask, labels)
         bad += check.mask_faults(ref.mask_shapes, model, steps)
-        del keys, train_mask
+        del indptr, indices, train_mask
         if bad:  # the reference cannot follow draws of the wrong shape
             return {"tree_faults": float(bad)}
         for st in steps:  # the reference takes the labels of its own graph

@@ -16,7 +16,7 @@ from gnnbench.profiling import Slice
 from gnnbench.tests.cells import make_root
 
 NEW = ("sample_ms", "lookup_ms.train", "tower_fwd_ms", "backward_ms", "update_ms",
-       "idle_between_steps_ms", "lookup_ms.eval", "aggregate_ms", "spmm_rows_ms")
+       "idle_between_steps_ms", "lookup_ms.eval", "aggregate_ms")
 
 
 def reader(name):
